@@ -1,6 +1,14 @@
 // Shared device helpers of the port's kernels: the unit-variance kernel
 // profiles from t = gamma * d2 (gamma = 3 for Matern32, 1/2 for RBF, folded
 // into the scaled coordinates by the Python wrappers) and the C return code.
+//
+// The fp32 profiles come in two forms, chosen per kernel and tier by the
+// template flag FAST (never by a global --use_fast_math, which would also
+// reach the fp64 Kuf kernel):
+// - accurate: expf and t * rsqrtf(max(t, 1e-30));
+// - fast: one MUFU instruction each, ex2.approx on the argument scaled by
+//   log2(e) and sqrt.approx, both flushing subnormals (t >= 0, and an
+//   exponential below 2^-126 adds nothing to a sum of values near 1).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -9,26 +17,53 @@ namespace cglb {
 
 enum Family { RBF = 0, MAT32 = 1 };
 
-// sqrt(t) as t * rsqrt(t); the clamp keeps t = 0 from giving 0 * inf
-// (cglb_tpu/ops/matvec_pallas.py _tile_sqrt)
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float y;
+  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// exp(-x)
+template <bool FAST>
+__device__ __forceinline__ float exp_neg(float x) {
+  return FAST ? ex2_approx(-kLog2e * x) : expf(-x);
+}
+
+// sqrt(t); the accurate form is t * rsqrt(t), whose clamp keeps t = 0 from
+// giving 0 * inf (cglb_tpu/ops/matvec_pallas.py _tile_sqrt)
+template <bool FAST>
 __device__ __forceinline__ float sqrt_f32(float t) {
-  return t * rsqrtf(fmaxf(t, 1e-30f));
+  return FAST ? sqrt_approx(t) : t * rsqrtf(fmaxf(t, 1e-30f));
 }
 
 // rho(t): exp(-t) for RBF (t = d2/2); (1 + s) exp(-s), s = sqrt(t) for
 // Matern32 (t = 3 d2)
-template <int FAM>
+template <int FAM, bool FAST>
 __device__ __forceinline__ float rho_f32(float t) {
-  if (FAM == RBF) return expf(-t);
-  const float s = sqrt_f32(t);
-  return (1.0f + s) * expf(-s);
+  if (FAM == RBF) return exp_neg<FAST>(t);
+  const float s = sqrt_f32<FAST>(t);
+  const float e = exp_neg<FAST>(s);
+  return fmaf(s, e, e);
 }
 
-// d rho / d(d2) from t, exactly as _tile_drho_dd2 (matvec_pallas.py:157-161)
+// d rho / d(d2) = drho_scale<FAM>() * drho_unscaled_f32<FAM>(t), as
+// _tile_drho_dd2 (matvec_pallas.py:157-161) with the constant factored out
 template <int FAM>
-__device__ __forceinline__ float drho_dd2_f32(float t) {
-  if (FAM == RBF) return -0.5f * expf(-t);
-  return -1.5f * expf(-sqrt_f32(t));
+__host__ __device__ constexpr double drho_scale() {
+  return FAM == RBF ? -0.5 : -1.5;
+}
+
+template <int FAM, bool FAST>
+__device__ __forceinline__ float drho_unscaled_f32(float t) {
+  return FAM == RBF ? exp_neg<FAST>(t) : exp_neg<FAST>(sqrt_f32<FAST>(t));
 }
 
 // Every C entry point returns cudaGetLastError() after its launch, or this

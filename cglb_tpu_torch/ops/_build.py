@@ -1,11 +1,17 @@
 """Build and load the port's CUDA kernels (``cglb_tpu_torch/csrc``).
 
-All sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ``ctypes``.  The build runs at first
-use and again whenever a source is newer than the library (as
+Every source is compiled by its own ``nvcc`` process for ``sm_90a``, all
+started together, and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes``.  The build runs at first use and
+again whenever a source is newer than the library (as
 ``cglb_tpu/utils/native.py`` does for the host runtime).  The library and the
 compiler's ``-Xptxas -v`` report (registers, shared memory, spills per
 kernel) go to ``cglb_tpu_torch/_build/``, which git ignores.
+
+:func:`build_variants` compiles the same sources with extra ``-D`` macros
+(the tile shapes of ``csrc/matvec.cu``) into separate libraries, and
+:func:`activate` makes one of them the library the wrappers launch, for
+timing variants side by side.
 
 Nothing here is touched when a module is imported; the first CUDA launch
 calls :func:`load`.  A failed build raises: there is no fallback.
@@ -19,15 +25,16 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Dict, Sequence
 
-__all__ = ["load", "check", "build_seconds", "BUILD_DIR", "LIB_PATH",
-           "LOG_PATH"]
+__all__ = ["load", "check", "activate", "build_variants", "build_seconds",
+           "BUILD_DIR", "LIB_PATH", "LOG_PATH"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 LIB_PATH = BUILD_DIR / "libcglb_kernels.so"
-LOG_PATH = BUILD_DIR / "build.log"
+LOG_PATH = LIB_PATH.with_suffix(".log")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -35,8 +42,12 @@ _I32 = ctypes.c_int
 
 # entry point -> argtypes (all return the int from cudaGetLastError())
 _SIGNATURES = {
-    "cglb_matvec": [_P, _I64, _P, _I64, _P, _I32, _I32, _I32, _I32, _P, _P],
-    "cglb_ls_grad": [_P, _I64, _P, _I64, _P, _P, _I32, _I32, _I32, _P, _P],
+    "cglb_matvec_geometry": [_I32, _I32, _I32, _I32, _I32, _I32,
+                             ctypes.POINTER(_I32)],
+    "cglb_matvec": [_P, _I64, _P, _I64, _P, _I64, _I32, _I32, _I32, _I32,
+                    _I32, _I32, _P, _P, _P],
+    "cglb_ls_grad": [_P, _I64, _P, _I64, _P, _I64, _P, _I64, _I32, _I32,
+                     _I32, _I32, _I32, _I32, _P, _P],
     "cglb_kuf_f64": [_P, _I64, _P, _I64, _I32, _I32, _P, _P, _P, _P],
     "cglb_kuf_f32": [_P, _I64, _P, _I64, _I32, _I32, _P, _P, _P, _P],
 }
@@ -66,22 +77,59 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _build() -> None:
-    global _build_seconds
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".libcglb_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", str(tmp)]
-    cmd += [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    _build_seconds = time.perf_counter() - t0
-    LOG_PATH.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc={proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, LIB_PATH)
+def _compile(jobs: Dict[Path, Sequence[str]]) -> None:
+    """Build one library per ``{path: -D macros}``: one nvcc per source and
+    library, all running at once, then one link each.  Each library's
+    commands and compiler output go to ``<path>.log``."""
+    nvcc = _nvcc()
+    arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
+    procs = []
+    for lib, defines in jobs.items():
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = lib.parent / f"{lib.stem}.{src.stem}.{os.getpid()}.o"
+            cmd = ([nvcc] + arch + ["-std=c++17", "-O3", "-Xcompiler",
+                                    "-fPIC", "-Xptxas", "-v"]
+                   + [f"-D{d}" for d in defines]
+                   + ["-c", str(src), "-o", str(obj)])
+            procs.append((lib, obj, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+    logs = {lib: [] for lib in jobs}
+    objs = {lib: [] for lib in jobs}
+    failed = []
+    for lib, obj, cmd, proc in procs:
+        out, err = proc.communicate()
+        logs[lib] += [" ".join(cmd), out, err]
+        objs[lib].append(obj)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} (rc={proc.returncode}):\n"
+                          f"{err[-4000:]}")
+    for lib in jobs:
+        if not failed:
+            tmp = lib.parent / f".{lib.name}.{os.getpid()}"
+            cmd = [nvcc] + arch + ["-shared", "-o", str(tmp)] + [
+                str(o) for o in objs[lib]]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs[lib] += [" ".join(cmd), proc.stdout, proc.stderr]
+            if proc.returncode != 0:
+                failed.append(f"link {lib.name}: {proc.stderr[-4000:]}")
+            else:
+                os.replace(tmp, lib)
+        for obj in objs[lib]:
+            obj.unlink(missing_ok=True)
+        lib.with_suffix(".log").write_text("\n".join(logs[lib]))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
+def _bind(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def build_seconds() -> float:
@@ -91,20 +139,33 @@ def build_seconds() -> float:
 
 def load() -> ctypes.CDLL:
     """The kernel library, built first if missing or stale."""
-    global _lib
+    global _lib, _build_seconds
     if _lib is not None:
         return _lib
     if _stale():
-        _build()
-    lib = ctypes.CDLL(str(LIB_PATH))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.cglb_ls_grad_blocks.argtypes = [_I64]
-    lib.cglb_ls_grad_blocks.restype = _I64
-    _lib = lib
-    return lib
+        t0 = time.perf_counter()
+        _compile({LIB_PATH: ()})
+        _build_seconds = time.perf_counter() - t0
+    _lib = _bind(LIB_PATH)
+    return _lib
+
+
+def build_variants(variants: Dict[str, Sequence[str]]) -> Dict[str, tuple]:
+    """``{name: -D macros}`` -> ``{name: (library, register report)}``,
+    all built together under ``_build/variants/``."""
+    paths = {name: BUILD_DIR / "variants" / f"lib{name}.so"
+             for name in variants}
+    _compile({paths[name]: defines for name, defines in variants.items()})
+    return {name: (_bind(path), path.with_suffix(".log").read_text())
+            for name, path in paths.items()}
+
+
+def activate(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Make ``lib`` the library the wrappers launch; returns the previous
+    one (None if none was loaded yet)."""
+    global _lib
+    previous, _lib = _lib, lib
+    return previous
 
 
 def check(rc: int, what: str) -> None:

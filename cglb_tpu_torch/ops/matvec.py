@@ -10,6 +10,14 @@ Counterpart of ``cglb_tpu/ops/matvec_pallas.py``.  Two CUDA kernels
 - kernel 2, :func:`launch_ls_grad`: the lengthscale cotangent,
   sum_ij (sum_b p_bi g_bj) rho'(d2)_ij (xs_i - xs_j)_d^2, reduced in fp64.
 
+Each launch splits the rows into segments (:func:`plan_segments`, from the
+card's SM count and the kernel's resident blocks per SM) and sums the
+segments' partials in a fixed order (:func:`reduce_segments`), so that the
+grid fills the card and the result is deterministic.  When the rows and
+columns are the same :class:`Prepared` object (the training operator, its
+gradient, the prediction CG) the kernels take each unordered pair once
+(:func:`block_rows`).
+
 Beside each is its plain PyTorch version in the working dtype
 (:func:`matvec_unit_plain`, :func:`ls_grad_unit_plain`).  The dispatchers
 take the plain version only for tensors on the CPU; a CUDA tensor launches
@@ -24,8 +32,10 @@ is counted once, by kernel 2.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
-from typing import Callable, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
@@ -36,12 +46,16 @@ __all__ = ["Prepared", "kernel_matvec", "kernel_cross_matvec",
            "make_streaming_operator", "make_streaming_operator_pair",
            "matvec_unit", "matvec_unit_plain", "ls_grad_unit",
            "ls_grad_unit_plain", "launch_matvec", "launch_ls_grad",
-           "MAX_BATCH"]
+           "Geometry", "block_rows", "plan_segments", "segment_bounds",
+           "reduce_segments", "MAX_BATCH"]
 
 MAX_BATCH = 8
 _FAMILY_CODE = {"rbf": 0, "mat32": 1}
 # columns per plain-version chunk: bounds its [Ni, chunk] temporaries
 _PLAIN_CHUNK = 4096
+# row segments of one launch at most: bounds the partials (kernel 1 writes
+# segments x B x Nc of them)
+_MAX_SEGMENTS = 32
 
 
 def _dpad(d: int) -> int:
@@ -140,8 +154,107 @@ def ls_grad_unit_plain(xr, xc, p, g, family: str) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# launch geometry: the row range split into segments (pure Python)
+# --------------------------------------------------------------------------
+
+
+class Geometry(NamedTuple):
+    """What a kernel instantiation launches with on one card."""
+    block_cols: int  # output columns per block (32 lanes x columns a lane)
+    stage_rows: int  # rows per staged tile; segments are whole tiles
+    slots: int       # blocks resident at once: blocks per SM x SM count
+
+
+def block_rows(ni: int, nj: int, block_cols: int, col_block: int,
+               begin: int, end: int, symmetric: bool
+               ) -> Tuple[range, range]:
+    """(rows feeding both sides, rows feeding the columns only) that the
+    block of ``col_block`` and row segment [begin, end) takes.
+
+    Not symmetric: every row of the segment feeds the block's columns.
+    Symmetric (one point set, ni == nj): only rows below the end c1 of the
+    block's columns [c0, c1); rows below c0 also feed their own output
+    through the block's row sums, so each unordered pair is taken once."""
+    if not symmetric:
+        return range(0), range(begin, min(end, ni))
+    c0 = col_block * block_cols
+    c1 = min(c0 + block_cols, nj)
+    end = min(end, ni)
+    return range(begin, min(end, c0)), range(max(begin, c0), min(end, c1))
+
+
+@functools.lru_cache(maxsize=256)
+def plan_segments(ni: int, nj: int, geo: Geometry,
+                  symmetric: bool = False) -> Tuple[int, int]:
+    """(segments, seg_rows) for ni rows and nj columns: the grid is
+    ceil(nj / block_cols) column blocks by ``segments`` row segments of
+    ``seg_rows`` rows (a multiple of stage_rows; the last may be shorter).
+
+    Picks the split with the least estimated time, counted in staged tiles
+    per slot: whole waves of the blocks that have rows (:func:`block_rows`),
+    each its segment's tiles plus about one tile of fixed cost (pipeline
+    fill, the block's reduction), at most ``_MAX_SEGMENTS`` segments, the
+    fewest segments among equals."""
+    col_blocks = -(-nj // geo.block_cols)
+    tiles = -(-ni // geo.stage_rows)
+    best = None
+    for s in range(1, min(tiles, _MAX_SEGMENTS) + 1):
+        per = -(-tiles // s)  # tiles per segment
+        segments = -(-tiles // per)
+        seg_rows = per * geo.stage_rows
+        if symmetric:  # column block c has rows below min(ni, c1) only
+            active = sum(-(-min(ni, (c + 1) * geo.block_cols) // seg_rows)
+                         for c in range(col_blocks))
+        else:
+            active = col_blocks * segments
+        cost = -(-active // geo.slots) * (per + 1)
+        if best is None or cost < best[0]:
+            best = (cost, segments, seg_rows)
+    return best[1], best[2]
+
+
+def segment_bounds(ni: int, segments: int, seg_rows: int):
+    """[(begin, end)] of the rows each grid row of segments covers."""
+    return [(s * seg_rows, min(ni, (s + 1) * seg_rows))
+            for s in range(segments)]
+
+
+def reduce_segments(partials: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Sum [segments, ...] partials over the segments in a fixed order
+    (a deterministic torch.sum, no atomics), in their dtype or ``dtype``."""
+    if partials.shape[0] == 1 and dtype in (None, partials.dtype):
+        return partials[0]
+    return torch.sum(partials, dim=0, dtype=dtype)
+
+
+# --------------------------------------------------------------------------
 # CUDA launchers (kernels 1 and 2)
 # --------------------------------------------------------------------------
+
+
+_GEOMETRY: dict = {}
+
+
+def _geometry(lib, family: str, dp: int, bp: int, accurate: bool,
+              ls_grad: bool, symmetric: bool,
+              device: torch.device) -> Geometry:
+    """The instantiation's tile and occupancy (cglb_matvec_geometry) times
+    the card's SM count; cached per library, instantiation and card."""
+    key = (lib._handle, family, dp, bp, accurate, ls_grad, symmetric,
+           device.index)
+    if key not in _GEOMETRY:
+        geo = (ctypes.c_int * 3)()
+        with torch.cuda.device(device):
+            _build.check(lib.cglb_matvec_geometry(
+                _FAMILY_CODE[family], dp, bp, int(accurate), int(ls_grad),
+                int(symmetric), geo), "cglb_matvec_geometry")
+            sms = torch.cuda.get_device_properties(
+                device).multi_processor_count
+        if geo[2] < 1:
+            raise RuntimeError("a streaming kernel cannot be resident on "
+                               f"{torch.cuda.get_device_name(device)}")
+        _GEOMETRY[key] = Geometry(geo[0], geo[1], geo[2] * sms)
+    return _GEOMETRY[key]
 
 
 def _same_device(*tensors: torch.Tensor) -> None:
@@ -149,36 +262,57 @@ def _same_device(*tensors: torch.Tensor) -> None:
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"tensors on {t.device} and {dev}")
+        if t.data_ptr() % 16:
+            raise ValueError("the streaming kernels need 16-byte aligned "
+                             "tensors")
 
 
-def _padded_batch(a: torch.Tensor, b_pad: int) -> torch.Tensor:
+def _padded(a: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """a as a contiguous, 16-byte aligned fp32 [rows, cols], zero-padded."""
     a = a.to(torch.float32)
-    if a.shape[0] == b_pad:
-        return a.contiguous()
-    out = torch.zeros(b_pad, a.shape[1], dtype=torch.float32, device=a.device)
-    out[:a.shape[0]] = a
+    if (a.shape == (rows, cols) and a.is_contiguous()
+            and a.data_ptr() % 16 == 0):
+        return a
+    out = torch.zeros(rows, cols, dtype=torch.float32, device=a.device)
+    out[:a.shape[0], :a.shape[1]] = a
     return out
 
 
 def launch_matvec(rows: Prepared, cols: Prepared, p: torch.Tensor,
                   accurate: bool) -> torch.Tensor:
-    """Kernel 1 on the card: [B, Nc] in fp64 (accurate) or fp32 (CG)."""
+    """Kernel 1 on the card: [B, Nc] in fp64 (accurate) or fp32 (CG), from
+    per-segment partials summed by :func:`reduce_segments`.  When rows and
+    cols are the same prepared set the symmetric path takes each pair once
+    and adds the per-column-block row sums."""
     xr, xc = rows.packed(), cols.packed()
-    _same_device(xr, xc, p)
     if p.shape[1] != rows.n:
         raise ValueError(f"p has {p.shape[1]} columns, rows has {rows.n}")
+    symmetric = rows is cols
     B = p.shape[0]
     bp = _bpad(B)
-    pf = _padded_batch(p, bp)
-    out = torch.empty(bp, cols.n, device=p.device,
-                      dtype=torch.float64 if accurate else torch.float32)
+    ldp = -(-rows.n // 4) * 4
+    pf = _padded(p, bp, ldp)
+    _same_device(xr, xc, pf)
     lib = _build.load()
+    dp = xr.shape[1]
+    geo = _geometry(lib, rows.family, dp, bp, accurate, False, symmetric,
+                    p.device)
+    segments, seg_rows = plan_segments(rows.n, cols.n, geo, symmetric)
+    acc = torch.float64 if accurate else torch.float32
+    part = torch.empty(segments, bp, cols.n, device=p.device, dtype=acc)
+    row_part = (torch.empty(-(-cols.n // geo.block_cols), bp, rows.n,
+                            device=p.device, dtype=torch.float32)
+                if symmetric else None)
     rc = lib.cglb_matvec(
-        xr.data_ptr(), rows.n, xc.data_ptr(), cols.n, pf.data_ptr(), bp,
-        xr.shape[1], _FAMILY_CODE[rows.family], int(accurate),
-        out.data_ptr(), torch.cuda.current_stream(p.device).cuda_stream)
+        xr.data_ptr(), rows.n, xc.data_ptr(), cols.n, pf.data_ptr(), ldp, bp,
+        dp, _FAMILY_CODE[rows.family], int(accurate), seg_rows, segments,
+        part.data_ptr(), None if row_part is None else row_part.data_ptr(),
+        torch.cuda.current_stream(p.device).cuda_stream)
     _build.check(rc, "cglb_matvec")
     launch_matvec.launches += 1
+    out = reduce_segments(part)
+    if row_part is not None:
+        out = out + reduce_segments(row_part, acc)
     return out[:B]
 
 
@@ -188,21 +322,29 @@ launch_matvec.launches = 0
 def launch_ls_grad(rows: Prepared, cols: Prepared, p: torch.Tensor,
                    g: torch.Tensor) -> torch.Tensor:
     """Kernel 2 on the card: [D] fp64, summed over its per-block partials
-    by a deterministic torch.sum (no atomics)."""
+    by a deterministic torch.sum (no atomics); symmetric (each pair once,
+    m_ij + m_ji) when rows and cols are the same prepared set."""
     xr, xc = rows.packed(), cols.packed()
-    _same_device(xr, xc, p, g)
     B = p.shape[0]
     if g.shape != (B, cols.n) or p.shape[1] != rows.n:
         raise ValueError(f"shapes p {tuple(p.shape)}, g {tuple(g.shape)}")
+    symmetric = rows is cols
     bp = _bpad(B)
-    pf, gf = _padded_batch(p, bp), _padded_batch(g, bp)
+    ldp = -(-rows.n // 4) * 4
+    ldg = ldp if symmetric else cols.n  # symmetric: g is staged like p
+    pf, gf = _padded(p, bp, ldp), _padded(g, bp, ldg)
+    _same_device(xr, xc, pf, gf)
     lib = _build.load()
     dp = xr.shape[1]
-    partial = torch.empty(lib.cglb_ls_grad_blocks(cols.n), dp,
+    geo = _geometry(lib, rows.family, dp, bp, True, True, symmetric,
+                    p.device)
+    segments, seg_rows = plan_segments(rows.n, cols.n, geo, symmetric)
+    partial = torch.empty(segments * -(-cols.n // geo.block_cols), dp,
                           dtype=torch.float64, device=p.device)
     rc = lib.cglb_ls_grad(
-        xr.data_ptr(), rows.n, xc.data_ptr(), cols.n, pf.data_ptr(),
-        gf.data_ptr(), bp, dp, _FAMILY_CODE[rows.family], partial.data_ptr(),
+        xr.data_ptr(), rows.n, xc.data_ptr(), cols.n, pf.data_ptr(), ldp,
+        gf.data_ptr(), ldg, bp, dp, _FAMILY_CODE[rows.family],
+        int(symmetric), seg_rows, segments, partial.data_ptr(),
         torch.cuda.current_stream(p.device).cuda_stream)
     _build.check(rc, "cglb_ls_grad")
     launch_ls_grad.launches += 1

@@ -1,15 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (cglb_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # the smoke run below
+    python3 chip_smoke.py --variants  # also time tile variants of kernels 1-2
 
 Phases, each of which fails the run (non-zero exit) on error:
 
 1. device and build: the card's name and power limit (nvidia-smi), then the
-   CUDA kernels built from cglb_tpu_torch/csrc with nvcc;
+   CUDA kernels built from cglb_tpu_torch/csrc with nvcc, and the
+   ``-Xptxas -v`` registers and spills of kernels 1 and 2;
 2. each kernel against its plain PyTorch version at the main path's shapes
-   (N = 26800, D = 8, M = 2048, B = 1, both kernel families): errors
-   relative to max |plain| and median times from CUDA events;
+   (N = 26800, D = 8, M = 2048, B = 1, both kernel families; kernel 1 also
+   at the prediction shapes 26800 x 13200 and 13200 x 26800): errors
+   relative to max |plain|, bitwise-equal repeat launches, median times from
+   CUDA events beside each kernel's bound (the larger of its operations over
+   the card's peak rate and its bytes over the memory rate), and, for
+   context, torch.mv over a materialized fp32 K;
 3. the main path: the port's CLI trainer in-process,
    ``train -n 5 -d Wilson_kin40k -o adam_0.01 cglb -m cglb -k Matern32 -i cv
    -M 2048`` in fp64, its results.json checked, the kernels' launch counts
@@ -18,6 +24,11 @@ Phases, each of which fails the run (non-zero exit) on error:
    loaded into the port on the same synthetic data; elbo and the upper bound
    must match that run's results.json, the CGLB bound at converged v must lie
    between them, and test rmse/nlpd must agree.
+
+With ``--variants`` the tile shapes, pipeline depth and profile forms of
+``csrc/matvec.cu`` are rebuilt as separate libraries (its ``CGLB_*``
+macros) and kernels 1 and 2 timed in turns at 26800 x 26800 before the
+phases run.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -28,6 +39,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -49,6 +61,10 @@ TOL = {  # relative to max |plain|
     "kuf": 1e-12,
     "backward": 1e-5,
 }
+# H100 SXM data sheet, dense, at the 700 W limit: fp32 and fp64 outside the
+# tensor cores, and HBM3
+PEAK_FLOPS = {"fp32": 67e12, "fp64": 34e12}
+PEAK_BYTES = 3.35e12
 ANCHOR = ROOT / "runs" / "kin40k-2000-scipy4-r4"
 CLI_ARGS = ["-t", "fp64", "-s", "0", "train", "-n", "5", "-d",
             "Wilson_kin40k", "-o", "adam_0.01", "cglb", "-m", "cglb", "-k",
@@ -73,19 +89,21 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` runs (CUDA events),
-    after one warm-up run."""
+    """Milliseconds per call of ``fn``: ``reps`` calls enqueued back to back
+    between two CUDA events, so that the host's own time per call overlaps
+    the device's work; median of three such runs, after one warm-up call."""
     fn()
-    times = []
-    for _ in range(reps):
+    per_call = []
+    for _ in range(3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        per_call.append(start.elapsed_time(end) / reps)
+    return statistics.median(per_call)
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor):
@@ -94,9 +112,97 @@ def rel_err(got: torch.Tensor, want: torch.Tensor):
     return diff / float(torch.max(torch.abs(want))), diff
 
 
+def bound(flops: float, dtype: str, nbytes: float):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the operations over the peak rate of their type and the bytes (each
+    input read once, each output written once) over the memory rate."""
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return ((ops_ms, "operations") if ops_ms >= bytes_ms
+            else (bytes_ms, "bytes"))
+
+
+def matvec_bound(ni: int, nj: int, d: int, b: int, accurate: bool,
+                 symmetric: bool = False):
+    """Kernel 1 per pair: d subtractions and d FMAs for t (3d flops), about
+    4 for the profile, one FMA per batch row (2b); fp32.  Symmetric (one
+    point set): n(n+1)/2 pairs, each feeding both sides (4b).  Bytes: both
+    coordinate sets and p in fp32, the output in fp64 or fp32."""
+    flops = (ni * (ni + 1) // 2 * (3 * d + 4 + 4 * b) if symmetric
+             else ni * nj * (3 * d + 4 + 2 * b))
+    return bound(flops, "fp32",
+                 (ni + nj) * d * 4 + b * ni * 4 + b * nj * (8 if accurate
+                                                             else 4))
+
+
+def ls_grad_bound(ni: int, nj: int, d: int, b: int, symmetric: bool = False):
+    """Kernel 2 per pair: 3d for t, about 3 for rho', 2b + 1 for p.g and m
+    (symmetric: n(n+1)/2 pairs and 4b + 1), and 3 per dimension for
+    m * df * df; fp32.  Bytes: coordinates, p, g."""
+    flops = (ni * (ni + 1) // 2 * (6 * d + 3 + 4 * b + 1) if symmetric
+             else ni * nj * (6 * d + 3 + 2 * b + 1))
+    return bound(flops, "fp32",
+                 (ni + nj) * d * 4 + b * (ni + nj) * 4 + d * 8)
+
+
+def kuf_bound(m: int, n: int, d: int):
+    """Kernel 3: writes Kuf and e in fp64 (16 bytes an entry) and reads Z
+    and X; about 3d + 6 fp64 operations an entry."""
+    return bound(m * n * (3 * d + 6), "fp64", (m + n) * d * 8 + m * n * 16)
+
+
+def show(name: str, ms: float, bnd, extra: str = "") -> None:
+    print(f"[kernels] {name}: {ms:.4f} ms, bound {bnd[0]:.4f} ms "
+          f"({bnd[1]}), {100 * bnd[0] / ms:.1f} % of bound{extra}",
+          flush=True)
+
+
 # --------------------------------------------------------------------------
 # phase 1
 # --------------------------------------------------------------------------
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+# template arguments of the mangled names: <FAM, DP, B[, Acc], FAST, SYM>
+_STREAMING = re.compile(r"(matvec_kernel|ls_grad_kernel)"
+                        r"ILi(\d)ELi(\d+)ELi(\d)E([df]?)Lb(\d)ELb(\d)E")
+_FAMILY_NAME = {"0": "rbf", "1": "mat32"}
+
+
+def register_report(log: str) -> dict:
+    """{(kernel, tier): ["family/DP/B: R regs, spill S/L B", ...]} of
+    kernels 1 and 2 from an ``-Xptxas -v`` log."""
+    out: dict = {}
+    name = None
+    spill = ""
+    for line in log.splitlines():
+        entry = _ENTRY.search(line)
+        if entry:
+            name = _STREAMING.search(entry.group(1))
+            continue
+        if name is None:
+            continue
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if found:
+            spill = f"{found.group(1)}/{found.group(2)}"
+        found = re.search(r"Used (\d+) registers", line)
+        if found:
+            kernel, fam, dp, b, acc, fast, sym = name.groups()
+            tier = {"d": "accurate", "f": "cg", "": "ls_grad"}[acc]
+            tier += "" if fast == "1" else " exact"
+            tier += " symmetric" if sym == "1" else ""
+            out.setdefault((kernel, tier), []).append(
+                f"{_FAMILY_NAME[fam]}/{dp}/{b}: {found.group(1)} regs, "
+                f"spill {spill or '0/0'} B")
+            name, spill = None, ""
+    return out
+
+
+def print_registers(log: str, tag: str = "build") -> None:
+    for (kernel, tier), rows in sorted(register_report(log).items()):
+        print(f"[{tag}] {kernel} {tier} (family/DP/B): " + "; ".join(rows),
+              flush=True)
 
 
 def phase_build() -> None:
@@ -106,14 +212,15 @@ def phase_build() -> None:
     _build.load()
     torch.cuda.synchronize()
     log = _build.LOG_PATH.read_text() if _build.LOG_PATH.exists() else ""
-    regs = [line.split("ptxas info    : ")[-1] for line in log.splitlines()
-            if "registers" in line]
+    regs = [line for line in log.splitlines() if "Used " in line
+            and "registers" in line]
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke_build.log").write_text(log)
     print(f"[build] kernels loaded in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds():.2f} s); {len(regs)} kernel "
           f"instantiations, register report in chiprun_out/"
           "chip_smoke_build.log", flush=True)
+    print_registers(log)
 
 
 # --------------------------------------------------------------------------
@@ -172,12 +279,19 @@ def phase_kernels(results: dict) -> None:
         print(f"[kernels] {family} matvec CG tier: rel err {cg_err:.3e} "
               f"(bound {TOL['matvec_cg']:g})", flush=True)
         require(cg_err <= TOL["matvec_cg"], f"{family} CG-tier matvec")
+        pt = p[:, :N_TEST]
         cross = _mv.launch_matvec(rows, cols, p, True)
-        x_err, _ = rel_err(cross, _mv.matvec_unit_plain(rows.xg, cols.xg, p,
-                                                        family))
-        print(f"[kernels] {family} cross matvec {N}x{N_TEST}: rel err "
-              f"{x_err:.3e} (bound {TOL['cross_matvec']:g})", flush=True)
-        require(x_err <= TOL["cross_matvec"], f"{family} cross matvec")
+        cross_t = _mv.launch_matvec(cols, rows, pt, True)
+        for shape, got, ref in (
+                (f"{N}x{N_TEST}", cross,
+                 _mv.matvec_unit_plain(rows.xg, cols.xg, p, family)),
+                (f"{N_TEST}x{N}", cross_t,
+                 _mv.matvec_unit_plain(cols.xg, rows.xg, pt, family))):
+            x_err, _ = rel_err(got, ref)
+            print(f"[kernels] {family} cross matvec {shape}: rel err "
+                  f"{x_err:.3e} (bound {TOL['cross_matvec']:g})", flush=True)
+            require(x_err <= TOL["cross_matvec"],
+                    f"{family} cross matvec {shape}")
 
         # the Function backward (kernel 1 for dp, kernel 2 for dls)
         pv = p.detach().clone().requires_grad_(True)
@@ -211,39 +325,100 @@ def phase_kernels(results: dict) -> None:
               f"residual e {e_err:.3e} (bound {TOL['kuf']:g})", flush=True)
         require(max(kuf_err, e_err) <= TOL["kuf"], f"{family} Kuf")
 
+        # fixed summation order, no atomics: repeat launches are bitwise equal
+        repeats = {
+            "matvec accurate": (acc, lambda: _mv.launch_matvec(rows, rows, p,
+                                                               True)),
+            "matvec CG tier": (cg, lambda: _mv.launch_matvec(rows, rows, p,
+                                                             False)),
+            "cross matvec": (cross, lambda: _mv.launch_matvec(rows, cols, p,
+                                                              True)),
+            "ls-grad": (ls_k, lambda: _mv.launch_ls_grad(rows, rows, p, g)),
+            "Kuf": (kuf_k, lambda: _kuf.launch_kuf(zg, xg, var, family)[0]),
+        }
+        for name, (first, again) in repeats.items():
+            same = torch.equal(first, again())
+            print(f"[kernels] {family} {name}: repeat launch bitwise equal "
+                  f"{same}", flush=True)
+            require(same, f"{family} {name} is not deterministic")
+
+        def mv_ms(r, c, pp, accurate):
+            return cuda_ms(lambda: _mv.launch_matvec(r, c, pp, accurate), 10)
+
+        # the same points as a second prepared set: the general path
+        rows2 = _mv.Prepared(X, ls, family)
         timings = {
             "streaming_matvec": (
-                cuda_ms(lambda: _mv.launch_matvec(rows, rows, p, True), 10),
+                mv_ms(rows, rows, p, True),
                 cuda_ms(lambda: _mv.matvec_unit_plain(rows.xg, rows.xg, p,
-                                                      family), 3)),
+                                                      family), 3),
+                matvec_bound(N, N, D, 1, True, symmetric=True)),
             "streaming_matvec_cg": (
-                cuda_ms(lambda: _mv.launch_matvec(rows, rows, p, False), 10),
-                None),
+                mv_ms(rows, rows, p, False), None,
+                matvec_bound(N, N, D, 1, False, symmetric=True)),
+            "streaming_matvec general path": (
+                mv_ms(rows, rows2, p, True), None,
+                matvec_bound(N, N, D, 1, True)),
+            f"cross matvec {N}x{N_TEST}": (
+                mv_ms(rows, cols, p, True), None,
+                matvec_bound(N, N_TEST, D, 1, True)),
+            f"cross matvec {N_TEST}x{N}": (
+                mv_ms(cols, rows, pt, True), None,
+                matvec_bound(N_TEST, N, D, 1, True)),
             "ls_grad": (
                 cuda_ms(lambda: _mv.launch_ls_grad(rows, rows, p, g), 10),
                 cuda_ms(lambda: _mv.ls_grad_unit_plain(rows.xg, rows.xg, p,
-                                                       g, family), 3)),
+                                                       g, family), 3),
+                ls_grad_bound(N, N, D, 1, symmetric=True)),
+            "ls_grad general path": (
+                cuda_ms(lambda: _mv.launch_ls_grad(rows, rows2, p, g), 10),
+                None, ls_grad_bound(N, N, D, 1)),
             "kuf": (
                 cuda_ms(lambda: _kuf.launch_kuf(zg, xg, var, family), 10),
                 cuda_ms(lambda: _kuf.kuf_unit_plain(zg, xg, var, family),
-                        3)),
+                        3),
+                kuf_bound(M, N, D)),
         }
-        for name, (ms, plain_ms) in timings.items():
-            print(f"[kernels] {family} {name}: {ms:.4f} ms"
-                  + ("" if plain_ms is None else
-                     f" (plain {plain_ms:.4f} ms)"), flush=True)
+        for name, (ms, plain_ms, bnd) in timings.items():
+            show(f"{family} {name}", ms, bnd,
+                 "" if plain_ms is None else f" (plain {plain_ms:.4f} ms)")
         if family == "mat32":  # the main path's family
-            results["streaming_matvec"] = dict(
-                max_abs_err=abs_err, ms=timings["streaming_matvec"][0],
-                plain_ms=timings["streaming_matvec"][1])
-            results["ls_grad"] = dict(
-                max_abs_err=ls_abs, ms=timings["ls_grad"][0],
-                plain_ms=timings["ls_grad"][1])
-            results["kuf"] = dict(
-                max_abs_err=kuf_abs, ms=timings["kuf"][0],
-                plain_ms=timings["kuf"][1])
-        del rows, cols, plain, acc, cg, cross, kuf_k, e_k, kuf_p, e_p
+            lib_ms = materialized_mv_ms(rows, p)
+            print(f"[kernels] context, not a kernel of the port: torch.mv "
+                  f"over a materialized fp32 K {N}x{N} (2.87 GB): "
+                  f"{lib_ms:.4f} ms (read bound "
+                  f"{N * N * 4 / PEAK_BYTES * 1e3:.4f} ms)", flush=True)
+            for name, err_abs in (("streaming_matvec", abs_err),
+                                  ("ls_grad", ls_abs), ("kuf", kuf_abs)):
+                ms, plain_ms, (bound_ms, bound_by) = timings[name]
+                results[name] = dict(
+                    max_abs_err=err_abs, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            results["streaming_matvec"]["ms_cg_tier"] = timings[
+                "streaming_matvec_cg"][0]
+            results["streaming_matvec"]["materialized_mv_ms"] = lib_ms
+        del rows, rows2, cols, plain, acc, cg, cross, cross_t, kuf_k, e_k
+        del kuf_p, e_p
+        del repeats
         torch.cuda.empty_cache()
+
+
+def materialized_mv_ms(rows, p: torch.Tensor) -> float:
+    """torch.mv over K(X, X) materialized in fp32 (unit variance), for
+    context: no single PyTorch call computes the streamed p @ K(X, X)."""
+    from cglb_tpu_torch.ops import matvec as _mv
+
+    x = rows.xg.float()
+    K = torch.empty(x.shape[0], x.shape[0], dtype=torch.float32,
+                    device=x.device)
+    for c0 in range(0, x.shape[0], 4096):
+        K[:, c0:c0 + 4096] = _mv._rho(rows.family, _mv._sq_dist_direct(
+            x, x[c0:c0 + 4096]))
+    v = p[0].float()
+    ms = cuda_ms(lambda: torch.mv(K, v), 10)  # K is symmetric: K p = p K
+    del K
+    torch.cuda.empty_cache()
+    return ms
 
 
 # --------------------------------------------------------------------------
@@ -367,7 +542,102 @@ def phase_anchor() -> None:
             "anchor test/nlpd")
 
 
+# --------------------------------------------------------------------------
+# --variants: tile shapes of kernels 1 and 2 side by side
+# --------------------------------------------------------------------------
+
+# name -> -D macros of csrc/matvec.cu; "default" is the shipped choice
+VARIANTS = {
+    "default": (),
+    "mv_min1": ("CGLB_MV_MINBLOCKS=1",),
+    "mv2x2": ("CGLB_MV_COLS=2",),
+    "ls2x2": ("CGLB_LS_COLS=2", "CGLB_LS_ROWS=2"),
+    "stages2": ("CGLB_STAGES=2",),
+    "exact_profiles": ("CGLB_ACCURATE_FAST=0",),
+}
+
+
+def clocks_under_load(fn, seconds: float = 2.0) -> str:
+    """SM clock and board power (nvidia-smi every 100 ms) while ``fn`` runs
+    back to back for ``seconds``: median and range of the samples taken
+    after the first half second of load."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    time.sleep(1.0)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    smi.terminate()
+    out, _ = smi.communicate(timeout=30)
+    samples = [tuple(float(v) for v in line.split(","))
+               for line in out.strip().splitlines() if "," in line]
+    # the sampler ran 1 s before the load: keep what came after 1.5 s
+    samples = samples[15:15 + int(10 * (seconds - 0.5))]
+    if not samples:
+        return "no samples"
+    mhz = sorted(s[0] for s in samples)
+    watts = sorted(s[1] for s in samples)
+    return (f"SM clock median {statistics.median(mhz):.0f} MHz "
+            f"({mhz[0]:.0f}-{mhz[-1]:.0f}), power median "
+            f"{statistics.median(watts):.1f} W over {len(samples)} samples")
+
+
+def phase_variants() -> None:
+    """Kernels 1 (both tiers) and 2 of each variant at 26800 x 26800,
+    Matern32: errors against the plain fp64 version, registers, and median
+    times taken in turns (variants forward, then backward)."""
+    from cglb_tpu_torch.ops import _build
+    from cglb_tpu_torch.ops import matvec as _mv
+
+    t0 = time.perf_counter()
+    built = _build.build_variants(VARIANTS)
+    print(f"[variants] {len(built)} libraries built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    X = torch.as_tensor(rng.normal(size=(N, D)), device=dev)
+    p = torch.as_tensor(rng.normal(size=(1, N)), device=dev)
+    g = torch.as_tensor(rng.normal(size=(1, N)), device=dev)
+    ls = torch.as_tensor(rng.uniform(0.5, 2.0, size=D), device=dev)
+    rows = _mv.Prepared(X, ls, "mat32")
+    plain = _mv.matvec_unit_plain(rows.xg, rows.xg, p, "mat32")
+    ls_plain = _mv.ls_grad_unit_plain(rows.xg, rows.xg, p, g, "mat32")
+    runs = {"accurate": lambda: _mv.launch_matvec(rows, rows, p, True),
+            "cg": lambda: _mv.launch_matvec(rows, rows, p, False),
+            "ls_grad": lambda: _mv.launch_ls_grad(rows, rows, p, g)}
+    previous = _build.activate(None)
+    times: dict = {name: {k: [] for k in runs} for name in VARIANTS}
+    for name in list(VARIANTS) + list(reversed(VARIANTS)):
+        _build.activate(built[name][0])
+        for k, fn in runs.items():
+            times[name][k].append(cuda_ms(fn, 10))
+    for name, (lib, log) in built.items():
+        _build.activate(lib)
+        errs = [rel_err(runs[k](), ref)[0] for k, ref in
+                (("accurate", plain), ("cg", plain), ("ls_grad", ls_plain))]
+        regs = [f"{kernel} {tier} {row}" for (kernel, tier), rows_ in
+                sorted(register_report(log).items()) for row in rows_
+                if row.startswith("mat32/8/1:")]
+        print(f"[variants] {name} {' '.join(VARIANTS[name]) or '(none)'}: "
+              + ", ".join(f"{k} {statistics.median(v):.4f} ms"
+                          for k, v in times[name].items())
+              + "; rel err accurate {:.3e}, cg {:.3e}, ls_grad {:.3e}; "
+              .format(*errs) + "; ".join(regs), flush=True)
+    _build.activate(built["default"][0])
+    for k in ("accurate", "ls_grad"):
+        print(f"[variants] default {k} under load: "
+              f"{clocks_under_load(runs[k])}", flush=True)
+    _build.activate(previous)
+    del rows, plain, X
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
+    variants = "--variants" in sys.argv[1:]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -376,6 +646,8 @@ def main() -> int:
 
     card = nvidia_smi()
     print(f"[device] {card}", flush=True)
+    if variants:
+        phase_variants()
     phase_build()
     kernels: dict = {}
     phase_kernels(kernels)
@@ -394,10 +666,7 @@ def main() -> int:
                        "cglb_tpu/ops/kuf_pallas.py:186")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": kernels[name]["launches"],
-         "max_abs_err": kernels[name]["max_abs_err"],
-         "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"]}
-        for name, (src, rep) in sources.items()]}
+         **kernels[name]} for name, (src, rep) in sources.items()]}
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
 """PyTorch port on the card: each CUDA kernel against its plain version at
-small shapes, including the padded widths (D > 8, B not a power of two)
-and rectangular matvecs, and a short CLI run that must launch all three.
+small shapes, including the padded widths (D > 8, B not a power of two),
+rectangular matvecs and the symmetric path (one prepared point set),
+bitwise-equal repeat launches, and a short CLI run that must launch all
+three.
 
 Marked ``cuda``; skipped without a card.  This file imports neither jax nor
 cglb_tpu, so it runs where they are absent:
@@ -33,9 +35,16 @@ def _rel(got, want):
                  / want.abs().max())
 
 
+# Shapes on the kernels' edges: Nc not a multiple of a block's columns,
+# Ni below one staged tile, several row segments, B in {3, 8}, D in {9, 32},
+# rectangular both ways.
+SHAPES = [(300, 300, 3, 1), (257, 131, 20, 3), (1000, 77, 8, 8),
+          (50, 333, 8, 3), (2100, 129, 9, 8), (129, 2500, 32, 2),
+          (5000, 4100, 8, 1), (700, 30, 32, 3)]
+
+
 @pytest.mark.parametrize("family", ["mat32", "rbf"])
-@pytest.mark.parametrize("nr,nc,d,b", [(300, 300, 3, 1), (257, 131, 20, 3),
-                                       (1000, 77, 8, 8)])
+@pytest.mark.parametrize("nr,nc,d,b", SHAPES)
 def test_matvec_and_ls_grad_kernels_match_plain(dev, family, nr, nc, d, b):
     rng = np.random.default_rng(0)
     ls = torch.tensor(rng.uniform(0.5, 2.0, size=d), device=dev)
@@ -51,6 +60,53 @@ def test_matvec_and_ls_grad_kernels_match_plain(dev, family, nr, nc, d, b):
     got = tmv.launch_ls_grad(rows, cols, p, g)
     want = tmv.ls_grad_unit_plain(rows.xg, cols.xg, p, g, family)
     assert _rel(got, want) < 1e-5
+
+
+# one prepared point set: the symmetric path (each pair once)
+SYMMETRIC_SHAPES = [(300, 3, 1), (50, 8, 3), (1000, 8, 8), (2100, 9, 2),
+                    (129, 32, 4), (5000, 8, 1), (700, 32, 8)]
+
+
+@pytest.mark.parametrize("family", ["mat32", "rbf"])
+@pytest.mark.parametrize("n,d,b", SYMMETRIC_SHAPES)
+def test_symmetric_matvec_and_ls_grad_kernels_match_plain(dev, family, n, d,
+                                                          b):
+    rng = np.random.default_rng(4)
+    ls = torch.tensor(rng.uniform(0.5, 2.0, size=d), device=dev)
+    rows = tmv.Prepared(torch.tensor(rng.normal(size=(n, d)), device=dev),
+                        ls, family)
+    p = torch.tensor(rng.normal(size=(b, n)), device=dev)
+    g = torch.tensor(rng.normal(size=(b, n)), device=dev)
+    want = tmv.matvec_unit_plain(rows.xg, rows.xg, p, family)
+    assert _rel(tmv.launch_matvec(rows, rows, p, True), want) < 3e-6
+    assert _rel(tmv.launch_matvec(rows, rows, p, False), want) < 2e-3
+    got = tmv.launch_ls_grad(rows, rows, p, g)
+    want = tmv.ls_grad_unit_plain(rows.xg, rows.xg, p, g, family)
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("family", ["mat32", "rbf"])
+@pytest.mark.parametrize("nr,nc,d,b", [(5000, 4100, 8, 1), (129, 2500, 32, 3),
+                                       (5000, 0, 8, 1), (129, 0, 32, 3)])
+def test_matvec_and_ls_grad_kernels_are_deterministic(dev, family, nr, nc, d,
+                                                      b):
+    """Two launches on the same inputs give bitwise-equal results (fixed
+    summation order, no atomics), in both tiers and in kernel 2; nc = 0
+    takes the symmetric path (columns are the rows)."""
+    rng = np.random.default_rng(3)
+    ls = torch.tensor(rng.uniform(0.5, 2.0, size=d), device=dev)
+    rows = tmv.Prepared(torch.tensor(rng.normal(size=(nr, d)), device=dev),
+                        ls, family)
+    cols = rows if nc == 0 else tmv.Prepared(
+        torch.tensor(rng.normal(size=(nc, d)), device=dev), ls, family)
+    nc = cols.n
+    p = torch.tensor(rng.normal(size=(b, nr)), device=dev)
+    g = torch.tensor(rng.normal(size=(b, nc)), device=dev)
+    for accurate in (True, False):
+        assert torch.equal(tmv.launch_matvec(rows, cols, p, accurate),
+                           tmv.launch_matvec(rows, cols, p, accurate))
+    assert torch.equal(tmv.launch_ls_grad(rows, cols, p, g),
+                       tmv.launch_ls_grad(rows, cols, p, g))
 
 
 @pytest.mark.parametrize("family", ["mat32", "rbf"])

@@ -147,3 +147,134 @@ def test_kernel_shape_limits():
     with pytest.raises(ValueError):
         tmv._bpad(9)
     assert [tmv._bpad(b) for b in (1, 2, 3, 5, 8)] == [1, 2, 4, 8, 8]
+
+
+# launch geometry of the CUDA kernels (pure Python, checked on the CPU)
+
+GEOMETRIES = [tmv.Geometry(128, 128, 132 * 3), tmv.Geometry(64, 128, 132 * 2),
+              tmv.Geometry(64, 64, 114), tmv.Geometry(128, 128, 16)]
+
+
+@pytest.mark.parametrize("geo", GEOMETRIES)
+@pytest.mark.parametrize("ni", [1, 3, 63, 64, 127, 128, 129, 1000, 13200,
+                                26800])
+def test_segment_plan_covers_each_row_once(geo, ni):
+    for nj in (1, 77, 13200, 26800):
+        segments, seg_rows = tmv.plan_segments(ni, nj, geo)
+        assert seg_rows % geo.stage_rows == 0
+        assert 1 <= segments <= tmv._MAX_SEGMENTS
+        bounds = tmv.segment_bounds(ni, segments, seg_rows)
+        assert all(b < e for b, e in bounds)  # no empty segment
+        covered = [i for b, e in bounds for i in range(b, e)]
+        assert covered == list(range(ni))
+
+
+@pytest.mark.parametrize("ni,nj", [(26800, 26800), (26800, 13200),
+                                   (13200, 26800)])
+@pytest.mark.parametrize("geo", GEOMETRIES[:3])
+def test_segment_plan_fills_whole_waves_at_main_path_shapes(geo, ni, nj):
+    """At the training and prediction shapes the blocks fill at least 90 %
+    of the waves they take (a single segment would leave most SMs idle
+    at the prediction shape 26800 x 13200)."""
+    segments, _ = tmv.plan_segments(ni, nj, geo)
+    blocks = -(-nj // geo.block_cols) * segments
+    waves = -(-blocks // geo.slots)
+    assert blocks / (waves * geo.slots) >= 0.9
+
+
+@pytest.mark.parametrize("geo", [tmv.Geometry(64, 64, 4),
+                                 tmv.Geometry(32, 128, 7),
+                                 tmv.Geometry(128, 128, 396)])
+@pytest.mark.parametrize("n", [1, 50, 129, 300])
+def test_symmetric_blocks_take_each_pair_once(geo, n):
+    """Symmetric launches (one point set): over all blocks, the column side
+    (p_i rho_ij into out_j, rows of either range) and the row side (p_j
+    rho_ij into out_i, the first range only) count every ordered pair
+    (i -> j) exactly once, the diagonal included."""
+    segments, seg_rows = tmv.plan_segments(n, n, geo, True)
+    assert seg_rows % geo.stage_rows == 0
+    count = np.zeros((n, n), dtype=int)  # [i, j]: p_i rho_ij into out_j
+    for cb in range(-(-n // geo.block_cols)):
+        cols = np.arange(cb * geo.block_cols,
+                         min(n, (cb + 1) * geo.block_cols))
+        for begin, end in tmv.segment_bounds(n, segments, seg_rows):
+            both, col_only = tmv.block_rows(n, n, geo.block_cols, cb, begin,
+                                            end, True)
+            for i in list(both) + list(col_only):
+                count[i, cols] += 1
+            for i in both:
+                count[cols, i] += 1
+    assert (count == 1).all()
+
+
+def _segment_partials(xr, xc, p, family, geo, symmetric):
+    """The kernels' decomposition with the plain version on row slices:
+    (column partials [segments, B, nj], row partials [blocks, B, ni])."""
+    ni, nj = xr.shape[0], xc.shape[0]
+    segments, seg_rows = tmv.plan_segments(ni, nj, geo, symmetric)
+    blocks = -(-nj // geo.block_cols)
+    col_part = torch.zeros(segments, p.shape[0], nj, dtype=p.dtype)
+    row_part = torch.zeros(blocks, p.shape[0], ni, dtype=p.dtype)
+    for s, (begin, end) in enumerate(tmv.segment_bounds(ni, segments,
+                                                         seg_rows)):
+        for cb in range(blocks):
+            c = slice(cb * geo.block_cols, min(nj, (cb + 1) * geo.block_cols))
+            both, col_only = tmv.block_rows(ni, nj, geo.block_cols, cb,
+                                            begin, end, symmetric)
+            rows = list(both) + list(col_only)
+            if rows:
+                col_part[s, :, c] = tmv.matvec_unit_plain(
+                    xr[rows], xc[c], p[:, rows], family)
+            if len(both):
+                row_part[cb][:, list(both)] = tmv.matvec_unit_plain(
+                    xc[c], xr[list(both)], p[:, c], family)
+    return col_part, row_part
+
+
+@pytest.mark.parametrize("family", ["mat32", "rbf"])
+@pytest.mark.parametrize("symmetric", [False, True])
+@pytest.mark.parametrize("ni,geo", [(301, tmv.Geometry(64, 64, 4)),
+                                    (1000, tmv.Geometry(32, 128, 7)),
+                                    (50, tmv.Geometry(64, 64, 4))])
+def test_segment_reduction_matches_whole_range(rng, family, symmetric, ni,
+                                               geo):
+    """Per-segment partials (the plain version on each block's rows), and
+    in the symmetric case the per-column-block row sums, summed by
+    reduce_segments equal the whole-range plain version."""
+    nj = ni if symmetric else 90
+    d = 5
+    xr = torch.tensor(rng.normal(size=(ni, d)))
+    xc = xr if symmetric else torch.tensor(rng.normal(size=(nj, d)))
+    p = torch.tensor(rng.normal(size=(3, ni)))
+    col_part, row_part = _segment_partials(xr, xc, p, family, geo, symmetric)
+    want = tmv.matvec_unit_plain(xr, xc, p, family)
+    got = tmv.reduce_segments(col_part)
+    if symmetric:
+        got = got + tmv.reduce_segments(row_part)
+    else:
+        assert float(row_part.abs().max()) == 0.0
+    scale = float(want.abs().max())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-12 * scale)
+
+
+def test_reduce_segments_in_a_wider_dtype():
+    parts = torch.tensor([[[1.0, 2.0]], [[3.0, 4.0]]], dtype=torch.float32)
+    got = tmv.reduce_segments(parts, torch.float64)
+    assert got.dtype == torch.float64
+    assert got.tolist() == [[4.0, 6.0]]
+    assert tmv.reduce_segments(parts[:1], torch.float64).dtype == \
+        torch.float64
+
+
+def test_padded_operands_are_zero_filled_and_aligned():
+    a = torch.arange(6, dtype=torch.float64).reshape(2, 3)
+    out = tmv._padded(a, 4, 8)
+    assert out.dtype == torch.float32 and out.shape == (4, 8)
+    assert out.data_ptr() % 16 == 0 and out.is_contiguous()
+    torch.testing.assert_close(out[:2, :3], a.float())
+    assert float(out[2:].abs().sum() + out[:, 3:].abs().sum()) == 0.0
+    same = torch.zeros(2, 8, dtype=torch.float32)
+    assert tmv._padded(same, 2, 8) is same
+    view = torch.zeros(2, 9, dtype=torch.float32)[:, 1:]
+    assert tmv._padded(view, 2, 8).is_contiguous()
