@@ -2,13 +2,13 @@
 // profiles from t = gamma * d2 (gamma = 3 for Matern32, 1/2 for RBF, folded
 // into the scaled coordinates by the Python wrappers) and the C return code.
 //
-// The fp32 profiles come in two forms, chosen per kernel and tier by the
-// template flag FAST (never by a global --use_fast_math, which would also
-// reach the fp64 Kuf kernel):
-// - accurate: expf and t * rsqrtf(max(t, 1e-30));
-// - fast: one MUFU instruction each, ex2.approx on the argument scaled by
-//   log2(e) and sqrt.approx, both flushing subnormals (t >= 0, and an
-//   exponential below 2^-126 adds nothing to a sum of values near 1).
+// The fp32 profiles of the streaming kernels take one MUFU instruction per
+// transcendental: ex2.approx on the argument scaled by log2(e), and
+// sqrt.approx, both flushing subnormals (t >= 0, and an exponential below
+// 2^-126 adds nothing to a sum of values near 1).  On an H100 they stay
+// inside every tier's error bound and are about a fifth faster than expf /
+// t * rsqrtf(t) (PERF.md).  They are chosen here per function, not by a
+// global --use_fast_math, which would also reach the fp64 Kuf kernel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,25 +32,17 @@ __device__ __forceinline__ float sqrt_approx(float x) {
 }
 
 // exp(-x)
-template <bool FAST>
 __device__ __forceinline__ float exp_neg(float x) {
-  return FAST ? ex2_approx(-kLog2e * x) : expf(-x);
-}
-
-// sqrt(t); the accurate form is t * rsqrt(t), whose clamp keeps t = 0 from
-// giving 0 * inf (cglb_tpu/ops/matvec_pallas.py _tile_sqrt)
-template <bool FAST>
-__device__ __forceinline__ float sqrt_f32(float t) {
-  return FAST ? sqrt_approx(t) : t * rsqrtf(fmaxf(t, 1e-30f));
+  return ex2_approx(-kLog2e * x);
 }
 
 // rho(t): exp(-t) for RBF (t = d2/2); (1 + s) exp(-s), s = sqrt(t) for
 // Matern32 (t = 3 d2)
-template <int FAM, bool FAST>
+template <int FAM>
 __device__ __forceinline__ float rho_f32(float t) {
-  if (FAM == RBF) return exp_neg<FAST>(t);
-  const float s = sqrt_f32<FAST>(t);
-  const float e = exp_neg<FAST>(s);
+  if (FAM == RBF) return exp_neg(t);
+  const float s = sqrt_approx(t);
+  const float e = exp_neg(s);
   return fmaf(s, e, e);
 }
 
@@ -61,9 +53,9 @@ __host__ __device__ constexpr double drho_scale() {
   return FAM == RBF ? -0.5 : -1.5;
 }
 
-template <int FAM, bool FAST>
+template <int FAM>
 __device__ __forceinline__ float drho_unscaled_f32(float t) {
-  return FAM == RBF ? exp_neg<FAST>(t) : exp_neg<FAST>(sqrt_f32<FAST>(t));
+  return FAM == RBF ? exp_neg(t) : exp_neg(sqrt_approx(t));
 }
 
 // Every C entry point returns cudaGetLastError() after its launch, or this

@@ -1,0 +1,38 @@
+// Interface of kernels 1 and 2 between their C entry points (matvec.cu) and
+// their instantiations (matvec_kernels.cuh, compiled once per family and
+// path in matvec_<family>.cu and matvec_<family>_sym.cu, so that nvcc builds
+// the four in parallel).
+#pragma once
+
+#include "common.cuh"
+
+namespace cglb {
+
+enum Op { kMatvec, kLsGrad, kGeometry };
+
+struct Args {
+  const float* xr;
+  int ni;
+  const float* xc;
+  int nj;
+  const float* p;
+  int ldp;
+  const float* g;
+  int ldg;
+  int seg_rows;
+  int segments;
+  void* out;
+  float* row_out;  // kernel 1, symmetric: [column blocks, b, ni] row sums
+  bool accurate;
+  bool ls_grad;
+  bool symmetric;
+  cudaStream_t stream;
+  int* geometry;  // kGeometry: {block columns, stage rows, blocks per SM}
+};
+
+// kernels 1 and 2 of family FAM on the symmetric (SYM) or general path,
+// for coordinate width dp in {8, 32} and batch b in {1, 2, 4, 8}
+template <int FAM, bool SYM>
+int run_family(const Args& a, int dp, int b, Op op);
+
+}  // namespace cglb

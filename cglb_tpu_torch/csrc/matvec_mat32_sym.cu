@@ -1,0 +1,7 @@
+// Kernels 1 and 2 for Matern32, symmetric path (one point set)
+// (matvec_kernels.cuh).
+
+#include "matvec_kernels.cuh"
+
+template int cglb::run_family<cglb::MAT32, true>(
+    const cglb::Args&, int, int, cglb::Op);

@@ -1,17 +1,14 @@
 """Build and load the port's CUDA kernels (``cglb_tpu_torch/csrc``).
 
 Every source is compiled by its own ``nvcc`` process for ``sm_90a``, all
-started together, and the objects are linked into one shared library with a
-plain C interface, loaded with ``ctypes``.  The build runs at first use and
-again whenever a source is newer than the library (as
-``cglb_tpu/utils/native.py`` does for the host runtime).  The library and the
-compiler's ``-Xptxas -v`` report (registers, shared memory, spills per
-kernel) go to ``cglb_tpu_torch/_build/``, which git ignores.
-
-:func:`build_variants` compiles the same sources with extra ``-D`` macros
-(the tile shapes of ``csrc/matvec.cu``) into separate libraries, and
-:func:`activate` makes one of them the library the wrappers launch, for
-timing variants side by side.
+started together (kernels 1 and 2 are split into one translation unit per
+kernel family and path so that they compile in parallel), and the objects
+are linked into one shared library with a plain C interface, loaded with
+``ctypes``.  The build runs at first use and again whenever a source is
+newer than the library (as ``cglb_tpu/utils/native.py`` does for the host
+runtime).  The library and the compiler's ``-Xptxas -v`` report (registers,
+shared memory, spills per kernel) go to ``cglb_tpu_torch/_build/``, which
+git ignores.
 
 Nothing here is touched when a module is imported; the first CUDA launch
 calls :func:`load`.  A failed build raises: there is no fallback.
@@ -25,16 +22,15 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
 
-__all__ = ["load", "check", "activate", "build_variants", "build_seconds",
-           "BUILD_DIR", "LIB_PATH", "LOG_PATH"]
+__all__ = ["load", "check", "build_seconds", "BUILD_DIR", "LIB_PATH",
+           "LOG_PATH"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 LIB_PATH = BUILD_DIR / "libcglb_kernels.so"
-LOG_PATH = LIB_PATH.with_suffix(".log")
+LOG_PATH = BUILD_DIR / "build.log"
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -77,59 +73,45 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _compile(jobs: Dict[Path, Sequence[str]]) -> None:
-    """Build one library per ``{path: -D macros}``: one nvcc per source and
-    library, all running at once, then one link each.  Each library's
-    commands and compiler output go to ``<path>.log``."""
+def _build() -> None:
+    """One nvcc per source, all running at once, then one link; the
+    commands and the compiler's output go to LOG_PATH."""
+    global _build_seconds
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     nvcc = _nvcc()
     arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
     procs = []
-    for lib, defines in jobs.items():
-        lib.parent.mkdir(parents=True, exist_ok=True)
-        for src in sorted(CSRC.glob("*.cu")):
-            obj = lib.parent / f"{lib.stem}.{src.stem}.{os.getpid()}.o"
-            cmd = ([nvcc] + arch + ["-std=c++17", "-O3", "-Xcompiler",
-                                    "-fPIC", "-Xptxas", "-v"]
-                   + [f"-D{d}" for d in defines]
-                   + ["-c", str(src), "-o", str(obj)])
-            procs.append((lib, obj, cmd, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True)))
-    logs = {lib: [] for lib in jobs}
-    objs = {lib: [] for lib in jobs}
-    failed = []
-    for lib, obj, cmd, proc in procs:
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
+        cmd = [nvcc] + arch + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                               "-Xptxas", "-v", "-c", str(src), "-o", str(obj)]
+        procs.append((obj, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for _, cmd, proc in procs:
         out, err = proc.communicate()
-        logs[lib] += [" ".join(cmd), out, err]
-        objs[lib].append(obj)
+        log += [" ".join(cmd), out, err]
         if proc.returncode != 0:
             failed.append(f"{' '.join(cmd)} (rc={proc.returncode}):\n"
                           f"{err[-4000:]}")
-    for lib in jobs:
-        if not failed:
-            tmp = lib.parent / f".{lib.name}.{os.getpid()}"
-            cmd = [nvcc] + arch + ["-shared", "-o", str(tmp)] + [
-                str(o) for o in objs[lib]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            logs[lib] += [" ".join(cmd), proc.stdout, proc.stderr]
-            if proc.returncode != 0:
-                failed.append(f"link {lib.name}: {proc.stderr[-4000:]}")
-            else:
-                os.replace(tmp, lib)
-        for obj in objs[lib]:
-            obj.unlink(missing_ok=True)
-        lib.with_suffix(".log").write_text("\n".join(logs[lib]))
+    objs = [obj for obj, _, _ in procs]
+    if not failed:
+        tmp = BUILD_DIR / f".{LIB_PATH.name}.{os.getpid()}"
+        cmd = [nvcc] + arch + ["-shared", "-o", str(tmp)] + [
+            str(o) for o in objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += [" ".join(cmd), proc.stdout, proc.stderr]
+        if proc.returncode != 0:
+            failed.append(f"link: {proc.stderr[-4000:]}")
+        else:
+            os.replace(tmp, LIB_PATH)
+    _build_seconds = time.perf_counter() - t0
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    LOG_PATH.write_text("\n".join(log))
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-
-
-def _bind(path: Path) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
 
 
 def build_seconds() -> float:
@@ -139,33 +121,18 @@ def build_seconds() -> float:
 
 def load() -> ctypes.CDLL:
     """The kernel library, built first if missing or stale."""
-    global _lib, _build_seconds
+    global _lib
     if _lib is not None:
         return _lib
     if _stale():
-        t0 = time.perf_counter()
-        _compile({LIB_PATH: ()})
-        _build_seconds = time.perf_counter() - t0
-    _lib = _bind(LIB_PATH)
-    return _lib
-
-
-def build_variants(variants: Dict[str, Sequence[str]]) -> Dict[str, tuple]:
-    """``{name: -D macros}`` -> ``{name: (library, register report)}``,
-    all built together under ``_build/variants/``."""
-    paths = {name: BUILD_DIR / "variants" / f"lib{name}.so"
-             for name in variants}
-    _compile({paths[name]: defines for name, defines in variants.items()})
-    return {name: (_bind(path), path.with_suffix(".log").read_text())
-            for name, path in paths.items()}
-
-
-def activate(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Make ``lib`` the library the wrappers launch; returns the previous
-    one (None if none was loaded yet)."""
-    global _lib
-    previous, _lib = _lib, lib
-    return previous
+        _build()
+    lib = ctypes.CDLL(str(LIB_PATH))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
 
 
 def check(rc: int, what: str) -> None:

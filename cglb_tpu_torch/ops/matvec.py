@@ -1,7 +1,8 @@
 """Streaming kernel matvec: out = p @ K(X_rows, X_cols), K never stored.
 
 Counterpart of ``cglb_tpu/ops/matvec_pallas.py``.  Two CUDA kernels
-(``csrc/matvec.cu``) do the work on the card:
+(``csrc/matvec_kernels.cuh``, entry points in ``csrc/matvec.cu``) do the
+work on the card:
 
 - kernel 1, :func:`launch_matvec`: out[b, j] = sum_i p[b, i] rho(t_ij), with
   t = gamma * d2 from coordinates prepared once per objective evaluation
@@ -15,8 +16,7 @@ card's SM count and the kernel's resident blocks per SM) and sums the
 segments' partials in a fixed order (:func:`reduce_segments`), so that the
 grid fills the card and the result is deterministic.  When the rows and
 columns are the same :class:`Prepared` object (the training operator, its
-gradient, the prediction CG) the kernels take each unordered pair once
-(:func:`block_rows`).
+gradient, the prediction CG) the kernels take each unordered pair once.
 
 Beside each is its plain PyTorch version in the working dtype
 (:func:`matvec_unit_plain`, :func:`ls_grad_unit_plain`).  The dispatchers
@@ -46,8 +46,7 @@ __all__ = ["Prepared", "kernel_matvec", "kernel_cross_matvec",
            "make_streaming_operator", "make_streaming_operator_pair",
            "matvec_unit", "matvec_unit_plain", "ls_grad_unit",
            "ls_grad_unit_plain", "launch_matvec", "launch_ls_grad",
-           "Geometry", "block_rows", "plan_segments", "segment_bounds",
-           "reduce_segments", "MAX_BATCH"]
+           "Geometry", "plan_segments", "reduce_segments", "MAX_BATCH"]
 
 MAX_BATCH = 8
 _FAMILY_CODE = {"rbf": 0, "mat32": 1}
@@ -165,24 +164,6 @@ class Geometry(NamedTuple):
     slots: int       # blocks resident at once: blocks per SM x SM count
 
 
-def block_rows(ni: int, nj: int, block_cols: int, col_block: int,
-               begin: int, end: int, symmetric: bool
-               ) -> Tuple[range, range]:
-    """(rows feeding both sides, rows feeding the columns only) that the
-    block of ``col_block`` and row segment [begin, end) takes.
-
-    Not symmetric: every row of the segment feeds the block's columns.
-    Symmetric (one point set, ni == nj): only rows below the end c1 of the
-    block's columns [c0, c1); rows below c0 also feed their own output
-    through the block's row sums, so each unordered pair is taken once."""
-    if not symmetric:
-        return range(0), range(begin, min(end, ni))
-    c0 = col_block * block_cols
-    c1 = min(c0 + block_cols, nj)
-    end = min(end, ni)
-    return range(begin, min(end, c0)), range(max(begin, c0), min(end, c1))
-
-
 @functools.lru_cache(maxsize=256)
 def plan_segments(ni: int, nj: int, geo: Geometry,
                   symmetric: bool = False) -> Tuple[int, int]:
@@ -191,10 +172,11 @@ def plan_segments(ni: int, nj: int, geo: Geometry,
     ``seg_rows`` rows (a multiple of stage_rows; the last may be shorter).
 
     Picks the split with the least estimated time, counted in staged tiles
-    per slot: whole waves of the blocks that have rows (:func:`block_rows`),
-    each its segment's tiles plus about one tile of fixed cost (pipeline
-    fill, the block's reduction), at most ``_MAX_SEGMENTS`` segments, the
-    fewest segments among equals."""
+    per slot: whole waves of the blocks that have rows (symmetric: column
+    block c takes only the rows below the end of its columns), each its
+    segment's tiles plus about one tile of fixed cost (pipeline fill, the
+    block's reduction), at most ``_MAX_SEGMENTS`` segments, the fewest
+    segments among equals."""
     col_blocks = -(-nj // geo.block_cols)
     tiles = -(-ni // geo.stage_rows)
     best = None
@@ -211,12 +193,6 @@ def plan_segments(ni: int, nj: int, geo: Geometry,
         if best is None or cost < best[0]:
             best = (cost, segments, seg_rows)
     return best[1], best[2]
-
-
-def segment_bounds(ni: int, segments: int, seg_rows: int):
-    """[(begin, end)] of the rows each grid row of segments covers."""
-    return [(s * seg_rows, min(ni, (s + 1) * seg_rows))
-            for s in range(segments)]
 
 
 def reduce_segments(partials: torch.Tensor, dtype=None) -> torch.Tensor:

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (cglb_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # the smoke run below
-    python3 chip_smoke.py --variants  # also time tile variants of kernels 1-2
+    python3 chip_smoke.py                        # the smoke run below
+    python3 chip_smoke.py --compare OLD . . OLD  # times of trees, in turns
 
 Phases, each of which fails the run (non-zero exit) on error:
 
@@ -18,17 +18,21 @@ Phases, each of which fails the run (non-zero exit) on error:
    context, torch.mv over a materialized fp32 K;
 3. the main path: the port's CLI trainer in-process,
    ``train -n 5 -d Wilson_kin40k -o adam_0.01 cglb -m cglb -k Matern32 -i cv
-   -M 2048`` in fp64, its results.json checked, the kernels' launch counts
-   over that run read, and the training step timed;
+   -M 2048`` in fp64, its results.json checked and the kernels' launch
+   counts over that run read; then warm Adam steps of the same model timed
+   on the host clock and, under torch.profiler, their device time and
+   kernel launches per step;
 4. the anchor: the parameters of the TPU run runs/kin40k-2000-scipy4-r4
    loaded into the port on the same synthetic data; elbo and the upper bound
    must match that run's results.json, the CGLB bound at converged v must lie
    between them, and test rmse/nlpd must agree.
 
-With ``--variants`` the tile shapes, pipeline depth and profile forms of
-``csrc/matvec.cu`` are rebuilt as separate libraries (its ``CGLB_*``
-macros) and kernels 1 and 2 timed in turns at 26800 x 26800 before the
-phases run.
+With ``--compare TREE ...`` no phase runs.  Each tree (a directory holding
+a ``cglb_tpu_torch`` package, such as an older commit unpacked with ``git
+archive``) is timed in a process of its own, which builds that tree's
+kernels: the kernel rows of phase 2 (Matern32, without the plain versions)
+and the warm Adam steps of phase 3.  The median of each row over the runs
+of each tree is printed last, beside the card's name and power limit.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -37,6 +41,7 @@ repository beside it, the script exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import re
@@ -136,11 +141,12 @@ def matvec_bound(ni: int, nj: int, d: int, b: int, accurate: bool,
 
 
 def ls_grad_bound(ni: int, nj: int, d: int, b: int, symmetric: bool = False):
-    """Kernel 2 per pair: 3d for t, about 3 for rho', 2b + 1 for p.g and m
-    (symmetric: n(n+1)/2 pairs and 4b + 1), and 3 per dimension for
-    m * df * df; fp32.  Bytes: coordinates, p, g."""
-    flops = (ni * (ni + 1) // 2 * (6 * d + 3 + 4 * b + 1) if symmetric
-             else ni * nj * (6 * d + 3 + 2 * b + 1))
+    """Kernel 2 per pair: d subtractions, d products df * df and d additions
+    for t (3d), about 3 for rho', 2b + 1 for p.g and m (symmetric: n(n+1)/2
+    pairs and 4b + 1), and one FMA per dimension for m * df^2 (2d); fp32.
+    Bytes: coordinates, p, g."""
+    flops = (ni * (ni + 1) // 2 * (5 * d + 3 + 4 * b + 1) if symmetric
+             else ni * nj * (5 * d + 3 + 2 * b + 1))
     return bound(flops, "fp32",
                  (ni + nj) * d * 4 + b * (ni + nj) * 4 + d * 8)
 
@@ -163,9 +169,9 @@ def show(name: str, ms: float, bnd, extra: str = "") -> None:
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
-# template arguments of the mangled names: <FAM, DP, B[, Acc], FAST, SYM>
+# template arguments of the mangled names: <FAM, DP, B[, Acc], SYM>
 _STREAMING = re.compile(r"(matvec_kernel|ls_grad_kernel)"
-                        r"ILi(\d)ELi(\d+)ELi(\d)E([df]?)Lb(\d)ELb(\d)E")
+                        r"ILi(\d)ELi(\d+)ELi(\d)E([df]?)Lb(\d)E")
 _FAMILY_NAME = {"0": "rbf", "1": "mat32"}
 
 
@@ -188,9 +194,8 @@ def register_report(log: str) -> dict:
             spill = f"{found.group(1)}/{found.group(2)}"
         found = re.search(r"Used (\d+) registers", line)
         if found:
-            kernel, fam, dp, b, acc, fast, sym = name.groups()
+            kernel, fam, dp, b, acc, sym = name.groups()
             tier = {"d": "accurate", "f": "cg", "": "ls_grad"}[acc]
-            tier += "" if fast == "1" else " exact"
             tier += " symmetric" if sym == "1" else ""
             out.setdefault((kernel, tier), []).append(
                 f"{_FAMILY_NAME[fam]}/{dp}/{b}: {found.group(1)} regs, "
@@ -199,9 +204,9 @@ def register_report(log: str) -> dict:
     return out
 
 
-def print_registers(log: str, tag: str = "build") -> None:
+def print_registers(log: str) -> None:
     for (kernel, tier), rows in sorted(register_report(log).items()):
-        print(f"[{tag}] {kernel} {tier} (family/DP/B): " + "; ".join(rows),
+        print(f"[build] {kernel} {tier} (family/DP/B): " + "; ".join(rows),
               flush=True)
 
 
@@ -250,10 +255,9 @@ def _plain_function_grads(X, family, p, var, ls, g, chunk=2048):
     return p.grad, var.grad, ls.grad
 
 
-def phase_kernels(results: dict) -> None:
-    from cglb_tpu_torch.ops import kuf as _kuf
-    from cglb_tpu_torch.ops import matvec as _mv
-
+def kernel_inputs():
+    """X [N, D], X_test [N_TEST, D], Z [M, D], p and g [1, N], lengthscales
+    and variance on the card, from numpy seed 0."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     X = torch.as_tensor(rng.normal(size=(N, D)), device=dev)
@@ -263,6 +267,65 @@ def phase_kernels(results: dict) -> None:
     g = torch.as_tensor(rng.normal(size=(1, N)), device=dev)
     ls = torch.as_tensor(rng.uniform(0.5, 2.0, size=D), device=dev)
     var = torch.as_tensor(1.7, dtype=torch.float64, device=dev)
+    return X, Xc, Z, p, g, ls, var
+
+
+def kernel_rows(family: str, inputs) -> dict:
+    """{row: (launch, plain version or None, bound)} of the kernel times
+    taken at the main path's shapes: kernel 1 on K(X, X) in both tiers, on
+    X prepared twice (the general path), and on the prediction shapes;
+    kernel 2 on K(X, X), one prepared set and two; kernel 3."""
+    from cglb_tpu_torch.ops import kuf as _kuf
+    from cglb_tpu_torch.ops import matvec as _mv
+
+    X, Xc, Z, p, g, ls, var = inputs
+    rows = _mv.Prepared(X, ls, family)
+    rows2 = _mv.Prepared(X, ls, family)
+    cols = _mv.Prepared(Xc, ls, family)
+    pt = p[:, :N_TEST]
+    scale = math.sqrt(_mv.GAMMA[family])
+    zg, xg = Z * (scale / ls), X * (scale / ls)
+
+    def matvec(r, c, pp, accurate):
+        return lambda: _mv.launch_matvec(r, c, pp, accurate)
+
+    return {
+        "streaming_matvec": (
+            matvec(rows, rows, p, True),
+            lambda: _mv.matvec_unit_plain(rows.xg, rows.xg, p, family),
+            matvec_bound(N, N, D, 1, True, symmetric=True)),
+        "streaming_matvec_cg": (
+            matvec(rows, rows, p, False), None,
+            matvec_bound(N, N, D, 1, False, symmetric=True)),
+        "streaming_matvec general path": (
+            matvec(rows, rows2, p, True), None,
+            matvec_bound(N, N, D, 1, True)),
+        f"cross matvec {N}x{N_TEST}": (
+            matvec(rows, cols, p, True), None,
+            matvec_bound(N, N_TEST, D, 1, True)),
+        f"cross matvec {N_TEST}x{N}": (
+            matvec(cols, rows, pt, True), None,
+            matvec_bound(N_TEST, N, D, 1, True)),
+        "ls_grad": (
+            lambda: _mv.launch_ls_grad(rows, rows, p, g),
+            lambda: _mv.ls_grad_unit_plain(rows.xg, rows.xg, p, g, family),
+            ls_grad_bound(N, N, D, 1, symmetric=True)),
+        "ls_grad general path": (
+            lambda: _mv.launch_ls_grad(rows, rows2, p, g), None,
+            ls_grad_bound(N, N, D, 1)),
+        "kuf": (
+            lambda: _kuf.launch_kuf(zg, xg, var, family),
+            lambda: _kuf.kuf_unit_plain(zg, xg, var, family),
+            kuf_bound(M, N, D)),
+    }
+
+
+def phase_kernels(results: dict) -> None:
+    from cglb_tpu_torch.ops import kuf as _kuf
+    from cglb_tpu_torch.ops import matvec as _mv
+
+    inputs = kernel_inputs()
+    X, Xc, Z, p, g, ls, var = inputs
 
     for family in ("mat32", "rbf"):
         rows = _mv.Prepared(X, ls, family)
@@ -342,43 +405,11 @@ def phase_kernels(results: dict) -> None:
                   f"{same}", flush=True)
             require(same, f"{family} {name} is not deterministic")
 
-        def mv_ms(r, c, pp, accurate):
-            return cuda_ms(lambda: _mv.launch_matvec(r, c, pp, accurate), 10)
-
-        # the same points as a second prepared set: the general path
-        rows2 = _mv.Prepared(X, ls, family)
         timings = {
-            "streaming_matvec": (
-                mv_ms(rows, rows, p, True),
-                cuda_ms(lambda: _mv.matvec_unit_plain(rows.xg, rows.xg, p,
-                                                      family), 3),
-                matvec_bound(N, N, D, 1, True, symmetric=True)),
-            "streaming_matvec_cg": (
-                mv_ms(rows, rows, p, False), None,
-                matvec_bound(N, N, D, 1, False, symmetric=True)),
-            "streaming_matvec general path": (
-                mv_ms(rows, rows2, p, True), None,
-                matvec_bound(N, N, D, 1, True)),
-            f"cross matvec {N}x{N_TEST}": (
-                mv_ms(rows, cols, p, True), None,
-                matvec_bound(N, N_TEST, D, 1, True)),
-            f"cross matvec {N_TEST}x{N}": (
-                mv_ms(cols, rows, pt, True), None,
-                matvec_bound(N_TEST, N, D, 1, True)),
-            "ls_grad": (
-                cuda_ms(lambda: _mv.launch_ls_grad(rows, rows, p, g), 10),
-                cuda_ms(lambda: _mv.ls_grad_unit_plain(rows.xg, rows.xg, p,
-                                                       g, family), 3),
-                ls_grad_bound(N, N, D, 1, symmetric=True)),
-            "ls_grad general path": (
-                cuda_ms(lambda: _mv.launch_ls_grad(rows, rows2, p, g), 10),
-                None, ls_grad_bound(N, N, D, 1)),
-            "kuf": (
-                cuda_ms(lambda: _kuf.launch_kuf(zg, xg, var, family), 10),
-                cuda_ms(lambda: _kuf.kuf_unit_plain(zg, xg, var, family),
-                        3),
-                kuf_bound(M, N, D)),
-        }
+            name: (cuda_ms(fn, 10), None if plain_fn is None
+                   else cuda_ms(plain_fn, 3), bnd)
+            for name, (fn, plain_fn, bnd) in kernel_rows(family,
+                                                         inputs).items()}
         for name, (ms, plain_ms, bnd) in timings.items():
             show(f"{family} {name}", ms, bnd,
                  "" if plain_ms is None else f" (plain {plain_ms:.4f} ms)")
@@ -397,7 +428,7 @@ def phase_kernels(results: dict) -> None:
             results["streaming_matvec"]["ms_cg_tier"] = timings[
                 "streaming_matvec_cg"][0]
             results["streaming_matvec"]["materialized_mv_ms"] = lib_ms
-        del rows, rows2, cols, plain, acc, cg, cross, cross_t, kuf_k, e_k
+        del rows, cols, plain, acc, cg, cross, cross_t, kuf_k, e_k
         del kuf_p, e_p
         del repeats
         torch.cuda.empty_cache()
@@ -464,9 +495,12 @@ def phase_main_path(results: dict) -> None:
     results["_cli_wall_s"] = wall
 
 
-def time_training_step(steps: int = 3) -> list:
-    """Wall seconds of single Adam steps of the main path (model built the
-    same way as the CLI builds it, metrics excluded)."""
+def warm_steps() -> dict:
+    """Warm Adam steps of the main path's model (built as the CLI builds
+    it, metrics excluded): the host-clock wall time of single steps that end
+    in a synchronize (median of 5, after one), then over 3 more steps under
+    torch.profiler the device time of all kernels and of kernels 1-3, and
+    the launches of kernels 1-3, per step."""
     from cglb_tpu_torch import config as _config
     from cglb_tpu_torch.backend import Torch
     from cglb_tpu_torch.configs import (CGLBConfig, InducingVariableConfig,
@@ -476,21 +510,51 @@ def time_training_step(steps: int = 3) -> list:
 
     _config.set_default_float("fp64")
     _config.set_default_jitter("fp64")
-    backend = Torch(device="cuda")
-    bundle = get_dataset("Wilson_kin40k", split=0)
-    model = backend.create_model(
+    model = Torch(device="cuda").create_model(
         CGLBConfig(Matern32Config(), InducingVariableConfig(M)),
-        bundle.train, seed=0)
-    times = []
+        get_dataset("Wilson_kin40k", split=0).train, seed=0)
     state = model.carry_in()
-    for _ in range(steps):
+
+    def step():
+        nonlocal state
+        state = adam_minimize(model.loss_fn(), model.params, state, 1,
+                              0.01).state
+
+    times = []
+    for _ in range(6):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = adam_minimize(model.loss_fn(), model.params, state, 1, 0.01)
+        step()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        state = res.state
-    return times
+    out = {"adam step s": statistics.median(times[1:])}
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    steps = 3
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    tags = {"streaming_matvec": "matvec_kernel", "ls_grad": "ls_grad_kernel",
+            "kuf": "kuf_kernel"}
+    device = dict.fromkeys(["all"] + list(tags), 0.0)
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        device["all"] += us
+        for name, tag in tags.items():
+            if tag in ev.key:
+                device[name] += us
+    for name, us in device.items():
+        out[f"device ms per step, {name}"] = us / 1e3 / steps
+    for name, fn in counters.items():
+        out[f"launches per step, {name}"] = fn.launches / steps
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -543,124 +607,85 @@ def phase_anchor() -> None:
 
 
 # --------------------------------------------------------------------------
-# --variants: tile shapes of kernels 1 and 2 side by side
+# --compare: kernel and step times of source trees, in turns
 # --------------------------------------------------------------------------
 
-# name -> -D macros of csrc/matvec.cu; "default" is the shipped choice
-VARIANTS = {
-    "default": (),
-    "mv_min1": ("CGLB_MV_MINBLOCKS=1",),
-    "mv2x2": ("CGLB_MV_COLS=2",),
-    "ls2x2": ("CGLB_LS_COLS=2", "CGLB_LS_ROWS=2"),
-    "stages2": ("CGLB_STAGES=2",),
-    "exact_profiles": ("CGLB_ACCURATE_FAST=0",),
-}
+_RESULT = "RESULT "
 
 
-def clocks_under_load(fn, seconds: float = 2.0) -> str:
-    """SM clock and board power (nvidia-smi every 100 ms) while ``fn`` runs
-    back to back for ``seconds``: median and range of the samples taken
-    after the first half second of load."""
-    smi = subprocess.Popen(
-        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-         "--format=csv,noheader,nounits", "-lms", "100"],
-        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-    time.sleep(1.0)
-    t0 = time.perf_counter()
-    while time.perf_counter() - t0 < seconds:
-        for _ in range(20):
-            fn()
-        torch.cuda.synchronize()
-    smi.terminate()
-    out, _ = smi.communicate(timeout=30)
-    samples = [tuple(float(v) for v in line.split(","))
-               for line in out.strip().splitlines() if "," in line]
-    # the sampler ran 1 s before the load: keep what came after 1.5 s
-    samples = samples[15:15 + int(10 * (seconds - 0.5))]
-    if not samples:
-        return "no samples"
-    mhz = sorted(s[0] for s in samples)
-    watts = sorted(s[1] for s in samples)
-    return (f"SM clock median {statistics.median(mhz):.0f} MHz "
-            f"({mhz[0]:.0f}-{mhz[-1]:.0f}), power median "
-            f"{statistics.median(watts):.1f} W over {len(samples)} samples")
+def times_of_tree(tree: Path) -> int:
+    """Print the kernel rows' times and the warm steps of the package in
+    ``tree`` as one RESULT line (this process only)."""
+    sys.path.insert(0, str(tree))
+    import cglb_tpu_torch
 
-
-def phase_variants() -> None:
-    """Kernels 1 (both tiers) and 2 of each variant at 26800 x 26800,
-    Matern32: errors against the plain fp64 version, registers, and median
-    times taken in turns (variants forward, then backward)."""
-    from cglb_tpu_torch.ops import _build
-    from cglb_tpu_torch.ops import matvec as _mv
-
-    t0 = time.perf_counter()
-    built = _build.build_variants(VARIANTS)
-    print(f"[variants] {len(built)} libraries built in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
-    X = torch.as_tensor(rng.normal(size=(N, D)), device=dev)
-    p = torch.as_tensor(rng.normal(size=(1, N)), device=dev)
-    g = torch.as_tensor(rng.normal(size=(1, N)), device=dev)
-    ls = torch.as_tensor(rng.uniform(0.5, 2.0, size=D), device=dev)
-    rows = _mv.Prepared(X, ls, "mat32")
-    plain = _mv.matvec_unit_plain(rows.xg, rows.xg, p, "mat32")
-    ls_plain = _mv.ls_grad_unit_plain(rows.xg, rows.xg, p, g, "mat32")
-    runs = {"accurate": lambda: _mv.launch_matvec(rows, rows, p, True),
-            "cg": lambda: _mv.launch_matvec(rows, rows, p, False),
-            "ls_grad": lambda: _mv.launch_ls_grad(rows, rows, p, g)}
-    previous = _build.activate(None)
-    times: dict = {name: {k: [] for k in runs} for name in VARIANTS}
-    for name in list(VARIANTS) + list(reversed(VARIANTS)):
-        _build.activate(built[name][0])
-        for k, fn in runs.items():
-            times[name][k].append(cuda_ms(fn, 10))
-    for name, (lib, log) in built.items():
-        _build.activate(lib)
-        errs = [rel_err(runs[k](), ref)[0] for k, ref in
-                (("accurate", plain), ("cg", plain), ("ls_grad", ls_plain))]
-        regs = [f"{kernel} {tier} {row}" for (kernel, tier), rows_ in
-                sorted(register_report(log).items()) for row in rows_
-                if row.startswith("mat32/8/1:")]
-        print(f"[variants] {name} {' '.join(VARIANTS[name]) or '(none)'}: "
-              + ", ".join(f"{k} {statistics.median(v):.4f} ms"
-                          for k, v in times[name].items())
-              + "; rel err accurate {:.3e}, cg {:.3e}, ls_grad {:.3e}; "
-              .format(*errs) + "; ".join(regs), flush=True)
-    _build.activate(built["default"][0])
-    for k in ("accurate", "ls_grad"):
-        print(f"[variants] default {k} under load: "
-              f"{clocks_under_load(runs[k])}", flush=True)
-    _build.activate(previous)
-    del rows, plain, X
+    require(Path(cglb_tpu_torch.__file__).resolve().is_relative_to(tree),
+            f"no cglb_tpu_torch package in {tree}")
+    out = {"tree": str(tree)}
+    for name, (fn, _, _) in kernel_rows("mat32", kernel_inputs()).items():
+        out[f"{name} ms"] = cuda_ms(fn, 10)
     torch.cuda.empty_cache()
+    out.update(warm_steps())
+    print(_RESULT + json.dumps(out), flush=True)
+    return 0
+
+
+def compare(trees, card: str) -> int:
+    results: dict = {}
+    for tree in trees:
+        proc = subprocess.run(
+            [sys.executable, __file__, "--times-of",
+             str(Path(tree).resolve())],
+            capture_output=True, text=True, timeout=1200)
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith(_RESULT)]
+        if proc.returncode != 0 or not lines:
+            print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
+            return 1
+        res = json.loads(lines[-1][len(_RESULT):])
+        print(f"[compare] {json.dumps(res)}", flush=True)
+        results.setdefault(res.pop("tree"), []).append(res)
+    print(f"[compare] medians over the runs of each tree ({card}):")
+    for tree, runs in results.items():
+        print(f"[compare] {tree}: " + ", ".join(
+            f"{k} {statistics.median(r[k] for r in runs)!r}"
+            for k in runs[0]), flush=True)
+    return 0
 
 
 def main() -> int:
-    variants = "--variants" in sys.argv[1:]
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--compare", nargs="+", metavar="TREE",
+                    help="time these source trees in turns instead")
+    ap.add_argument("--times-of", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if args.times_of:
+        return times_of_tree(args.times_of)
     sys.path.insert(0, str(ROOT))
     import cglb_tpu_torch  # noqa: F401  (fails without the repository)
 
     card = nvidia_smi()
     print(f"[device] {card}", flush=True)
-    if variants:
-        phase_variants()
+    if args.compare:
+        return compare(args.compare, card)
     phase_build()
     kernels: dict = {}
     phase_kernels(kernels)
     phase_main_path(kernels)
-    steps = time_training_step()
-    print(f"[main] Adam step wall times (s): "
-          f"{', '.join(f'{t:.3f}' for t in steps)}; median "
-          f"{statistics.median(steps):.3f} s ({card})", flush=True)
+    steps = warm_steps()
+    print(f"[main] warm Adam steps ({card}): {json.dumps(steps)}",
+          flush=True)
+    for name in _counters():
+        kernels[name]["launches_per_step"] = steps[
+            f"launches per step, {name}"]
     phase_anchor()
 
-    sources = {"streaming_matvec": ("cglb_tpu_torch/csrc/matvec.cu",
+    sources = {"streaming_matvec": ("cglb_tpu_torch/csrc/matvec_kernels.cuh",
                                     "cglb_tpu/ops/matvec_pallas.py:164"),
-               "ls_grad": ("cglb_tpu_torch/csrc/matvec.cu",
+               "ls_grad": ("cglb_tpu_torch/csrc/matvec_kernels.cuh",
                            "cglb_tpu/ops/matvec_pallas.py:190"),
                "kuf": ("cglb_tpu_torch/csrc/kuf.cu",
                        "cglb_tpu/ops/kuf_pallas.py:186")}

@@ -155,6 +155,12 @@ GEOMETRIES = [tmv.Geometry(128, 128, 132 * 3), tmv.Geometry(64, 128, 132 * 2),
               tmv.Geometry(64, 64, 114), tmv.Geometry(128, 128, 16)]
 
 
+def _segment_bounds(ni, segments, seg_rows):
+    """[(begin, end)] of the rows each grid row of segments covers."""
+    return [(s * seg_rows, min(ni, (s + 1) * seg_rows))
+            for s in range(segments)]
+
+
 @pytest.mark.parametrize("geo", GEOMETRIES)
 @pytest.mark.parametrize("ni", [1, 3, 63, 64, 127, 128, 129, 1000, 13200,
                                 26800])
@@ -163,7 +169,7 @@ def test_segment_plan_covers_each_row_once(geo, ni):
         segments, seg_rows = tmv.plan_segments(ni, nj, geo)
         assert seg_rows % geo.stage_rows == 0
         assert 1 <= segments <= tmv._MAX_SEGMENTS
-        bounds = tmv.segment_bounds(ni, segments, seg_rows)
+        bounds = _segment_bounds(ni, segments, seg_rows)
         assert all(b < e for b, e in bounds)  # no empty segment
         covered = [i for b, e in bounds for i in range(b, e)]
         assert covered == list(range(ni))
@@ -182,6 +188,23 @@ def test_segment_plan_fills_whole_waves_at_main_path_shapes(geo, ni, nj):
     assert blocks / (waves * geo.slots) >= 0.9
 
 
+def _block_rows(ni, nj, block_cols, col_block, begin, end, symmetric):
+    """(rows feeding both sides, rows feeding the columns only) that the
+    block of ``col_block`` and row segment [begin, end) takes, as
+    csrc/matvec_kernels.cuh splits them.
+
+    Not symmetric: every row of the segment feeds the block's columns.
+    Symmetric (one point set, ni == nj): only rows below the end c1 of the
+    block's columns [c0, c1); rows below c0 also feed their own output
+    through the block's row sums, so each unordered pair is taken once."""
+    if not symmetric:
+        return range(0), range(begin, min(end, ni))
+    c0 = col_block * block_cols
+    c1 = min(c0 + block_cols, nj)
+    end = min(end, ni)
+    return range(begin, min(end, c0)), range(max(begin, c0), min(end, c1))
+
+
 @pytest.mark.parametrize("geo", [tmv.Geometry(64, 64, 4),
                                  tmv.Geometry(32, 128, 7),
                                  tmv.Geometry(128, 128, 396)])
@@ -197,9 +220,9 @@ def test_symmetric_blocks_take_each_pair_once(geo, n):
     for cb in range(-(-n // geo.block_cols)):
         cols = np.arange(cb * geo.block_cols,
                          min(n, (cb + 1) * geo.block_cols))
-        for begin, end in tmv.segment_bounds(n, segments, seg_rows):
-            both, col_only = tmv.block_rows(n, n, geo.block_cols, cb, begin,
-                                            end, True)
+        for begin, end in _segment_bounds(n, segments, seg_rows):
+            both, col_only = _block_rows(n, n, geo.block_cols, cb, begin,
+                                         end, True)
             for i in list(both) + list(col_only):
                 count[i, cols] += 1
             for i in both:
@@ -215,12 +238,12 @@ def _segment_partials(xr, xc, p, family, geo, symmetric):
     blocks = -(-nj // geo.block_cols)
     col_part = torch.zeros(segments, p.shape[0], nj, dtype=p.dtype)
     row_part = torch.zeros(blocks, p.shape[0], ni, dtype=p.dtype)
-    for s, (begin, end) in enumerate(tmv.segment_bounds(ni, segments,
+    for s, (begin, end) in enumerate(_segment_bounds(ni, segments,
                                                          seg_rows)):
         for cb in range(blocks):
             c = slice(cb * geo.block_cols, min(nj, (cb + 1) * geo.block_cols))
-            both, col_only = tmv.block_rows(ni, nj, geo.block_cols, cb,
-                                            begin, end, symmetric)
+            both, col_only = _block_rows(ni, nj, geo.block_cols, cb,
+                                         begin, end, symmetric)
             rows = list(both) + list(col_only)
             if rows:
                 col_part[s, :, c] = tmv.matvec_unit_plain(
