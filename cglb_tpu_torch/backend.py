@@ -6,9 +6,11 @@ The device is explicit: ``Torch(device="cuda")`` raises when CUDA is absent
 (``device="cpu"`` for tests).  At N >= 8192 the CGLB loss runs on the
 streaming operator (kernels 1 and 2; ops/matvec.py), with the fp32 CG tier in
 the CG loop when max_error >= 0.5; Kuf comes from kernel 3 (ops/kuf.py) on
-every path.  Ported model kinds: ``cglb`` (Jensen log-det) and ``sgpr``;
-optimizer: ``adam_<lr>``.  The rest raises NotImplementedError naming its
-ROADMAP queue.
+every path.  Model kinds: ``cglb`` (Jensen log-det), ``cglbn2m``,
+``cglbnm2``, ``sgpr`` and ``sgprn2m``; optimizers: ``scipy``, ``scipy4``,
+``scipy_tol`` and ``adam_<lr>``, with periodic full-state checkpoints.  The
+exact-GP models and the other optimizers raise NotImplementedError naming
+their ROADMAP queue.
 """
 
 from __future__ import annotations
@@ -26,12 +28,17 @@ from .models.cglb import CGLBConfig as _RunCfg
 from .models.gaussian import predict_log_density as _pld
 from .ops import kernels as _k
 from .ops import matvec as _mv
+from .transforms import Param as _Param
+from .utils import flatten as _fl
 from .utils import metrics as _metrics
 from .utils import serialization as _ser
 from .utils import training as _training
 from .utils.logging import Logger
 
 __all__ = ["Model", "Torch", "resolve_device"]
+
+_CGLB_KINDS = {"cglb": "jensen", "cglbn2m": "n2m", "cglbnm2": "nm2"}
+_SGPR_KINDS = ("sgpr", "sgprn2m")
 
 
 def resolve_device(device) -> torch.device:
@@ -65,10 +72,24 @@ class Model:
         self.run_cfg = run_cfg
         self.matvec_mode = matvec
         X, Y = data
-        self.v0 = (_cglb.init_v0(X.shape[0], Y.shape[1], X.dtype, X.device)
-                   if kind == "cglb" else None)
+        self.v0 = None
+        if kind in _CGLB_KINDS:
+            self.v0 = _cglb.init_v0(X.shape[0], Y.shape[1], X.dtype, X.device)
+            if self.joint:
+                # --vjoint: v0 becomes a trainable Param of the parameter
+                # module, after the others
+                self.params.v0 = _Param(self.v0, trainable=True)
         self.cg_steps = 0
         self.cg_residual_error = 0.0
+        self.last_checkpoint_extra: Dict = {}
+
+    @property
+    def joint(self) -> bool:
+        """v is optimized jointly with the parameters (--vjoint without
+        --vzero)."""
+        cfg = self.run_cfg
+        return (cfg is not None and cfg.joint_optimization
+                and not cfg.vzero)
 
     @property
     def streaming(self) -> bool:
@@ -79,27 +100,48 @@ class Model:
     def loss_fn(self) -> Callable:
         """fn(params, carry) -> (loss, carry); carry is v0 or a CGLBAux."""
         X, Y = self.data
-        if self.kind == "sgpr":
+        if self.kind in _SGPR_KINDS:
+            bound = _sgpr.elbo if self.kind == "sgpr" else _sgpr.elbo_n2m
+
             def fn(params, state):
-                return -_sgpr.elbo(params, X, Y), state
+                return -bound(params, X, Y), state
 
             return fn
-        cfg = self.run_cfg
-        streaming = self.streaming
         # fp32 CG tier only in the loose training regime: its operator error
         # sits far below the stopping threshold there, and the accurate
         # assembly keeps the bound valid
-        fast_cg = cfg.max_error >= 0.5
+        return self._cglb_loss_fn(fast_cg=self.run_cfg.max_error >= 0.5)
 
-        def fn(params, carry):
+    def loss_fn_tol(self) -> Callable:
+        """fn(params, carry, max_error) -> (loss, aux): the CGLB loss with
+        the CG stopping tolerance as an argument, for the levels of the
+        adaptive schedule (``-o scipy_tol``).  CG runs on the accurate
+        streaming tier here: the CG tier's operator error is sound only
+        while the stopping threshold dwarfs it, which no longer holds once
+        the schedule tightens below about 0.5."""
+        if self.kind not in _CGLB_KINDS:
+            raise ValueError("adaptive CG tolerance requires a CGLB model")
+        return self._cglb_loss_fn(fast_cg=False)
+
+    def _cglb_loss_fn(self, fast_cg: bool) -> Callable:
+        X, Y = self.data
+        cfg = self.run_cfg
+        streaming = self.streaming
+        joint = self.joint
+
+        def fn(params, carry, max_error=None):
             v0 = carry.v if isinstance(carry, _cglb.CGLBAux) else carry
+            if joint:
+                # trainable v: read from the parameter module so that the
+                # gradient flows into it through the bound assembly
+                v0 = params.v0.value
             matvec = matvec_cg = None
             if streaming:
                 matvec, cg_tier = _mv.make_streaming_operator_pair(
                     params.kernel, X, params.noise_variance.value)
                 matvec_cg = cg_tier if fast_cg else matvec
             return _cglb.loss(params, X, Y, v0, cfg, matvec=matvec,
-                              matvec_cg=matvec_cg)
+                              matvec_cg=matvec_cg, max_error=max_error)
 
         return fn
 
@@ -107,7 +149,7 @@ class Model:
         return self.v0
 
     def carry_out(self, state) -> None:
-        if self.kind == "cglb" and isinstance(state, _cglb.CGLBAux):
+        if self.kind in _CGLB_KINDS and isinstance(state, _cglb.CGLBAux):
             self.v0 = state.v
             self.cg_steps = int(state.cg_steps)
             self.cg_residual_error = float(state.cg_residual_error)
@@ -144,7 +186,7 @@ class Model:
         X, Y = self.data
         Xnew = torch.as_tensor(Xnew, dtype=X.dtype, device=X.device)
         batch_size = batch_size or self.default_predict_batch()
-        if self.kind == "sgpr":
+        if self.kind in _SGPR_KINDS:
             cache = _sgpr.predict_prepare(p, X, Y)
 
             def batch(xs):
@@ -154,7 +196,8 @@ class Model:
             if self.streaming:
                 matvec = _mv.make_streaming_operator(p.kernel, X,
                                                      p.noise_variance.value)
-            cache = _cglb.predict_prepare(p, X, Y, self.v0, self.run_cfg,
+            v0 = p.v0.value if self.joint else self.v0
+            cache = _cglb.predict_prepare(p, X, Y, v0, self.run_cfg,
                                           cg_tolerance=cg_tolerance,
                                           matvec=matvec)
 
@@ -214,14 +257,12 @@ class Torch:
     def create_model(self, model_cfg: _cfgs.ModelConfig, data,
                      seed: int = None) -> Model:
         seed = seed if seed is not None else _config.settings.seed
-        kind = {_cfgs.CGLBConfig: "cglb", _cfgs.SGPRConfig: "sgpr"}.get(
-            type(model_cfg))
+        kind = {_cfgs.CGLBConfig: "cglb", _cfgs.CGLBN2MConfig: "cglbn2m",
+                _cfgs.CGLBNM2Config: "cglbnm2", _cfgs.SGPRConfig: "sgpr",
+                _cfgs.SGPRN2MConfig: "sgprn2m"}.get(type(model_cfg))
         if kind is None:
             raise _not_ported(f"model {type(model_cfg).__name__}",
-                              "queue 1, slices 3-4")
-        if kind == "cglb" and (model_cfg.vzero or
-                               model_cfg.joint_optimization):
-            raise _not_ported("--vzero / --vjoint", "queue 1, slice 3")
+                              "queue 1, the exact-GP models")
         X, Y = self._tensor(data[0]), self._tensor(data[1])
         kernel = self.create_kernel(model_cfg.kernel, (X, Y))
         p = model_cfg.params((X, Y))
@@ -229,8 +270,11 @@ class Torch:
         params = _sgpr.SGPRParams(kernel, Z, noise_variance=p["noise_variance"],
                                   output_dim=Y.shape[1], device=self.device)
         run_cfg = None
-        if kind == "cglb":
+        if kind in _CGLB_KINDS:
             run_cfg = _RunCfg(max_error=p["max_error"],
+                              joint_optimization=p["joint_optimization"],
+                              vzero=p["vzero"],
+                              logdet_variant=_CGLB_KINDS[kind],
                               max_cg_iters=self.max_cg_iters)
         return Model(kind, params, (X, Y), run_cfg, matvec=self.matvec_mode)
 
@@ -243,29 +287,96 @@ class Torch:
         _ser.save_model_params(model.parameter_dict(), logdir)
 
     @staticmethod
-    def load(model: Model, filepath) -> Model:
-        _training.from_jax_parameter_dict(model.params,
-                                          _ser.load_model_params(filepath))
+    def save_checkpoint(model: Model, logdir, extra: Dict = None) -> None:
+        """Full-state checkpoint: parameters and the CG warm start."""
+        v0 = None if model.v0 is None else model.v0.detach().cpu().numpy()
+        _ser.save_checkpoint(logdir, model.parameter_dict(), v0=v0,
+                             extra={"kind": model.kind, **(extra or {})})
+
+    @staticmethod
+    def load_checkpoint(model: Model, filepath) -> Model:
+        state = _ser.load_checkpoint(filepath)
+        _fl.assign_parameters(model.params, state["params"])
+        if state.get("v0") is not None and model.v0 is not None:
+            model.v0 = torch.as_tensor(state["v0"], dtype=model.v0.dtype,
+                                       device=model.v0.device)
+        # resume metadata (iters_done, the live tolerance level)
+        model.last_checkpoint_extra = state.get("extra", {}) or {}
         return model
 
     @staticmethod
-    def optimize(model: Model, datasets, num_steps: int,
+    def load(model: Model, filepath) -> Model:
+        _fl.assign_parameters(model.params, _ser.load_model_params(filepath))
+        return model
+
+    @classmethod
+    def optimize(cls, model: Model, datasets, num_steps: int,
                  logger: Optional[Logger] = None, optimizer: str = None,
-                 checkpoint_every: int = 0, **_unused):
-        if checkpoint_every:
-            raise _not_ported("--ckpt-every / --resume", "queue 1, slice 6")
-        if optimizer is None or not optimizer.startswith("adam"):
-            raise _not_ported(f"optimizer {optimizer!r}",
-                              "queue 1, slices 1 and 5")
-        lr = float(optimizer.split("_", maxsplit=1)[1])
+                 checkpoint_every: int = 0, checkpoint_dir=None,
+                 checkpoint_offset: int = 0, resume_extra: Dict = None):
+        """checkpoint_every > 0 (with checkpoint_dir): write a full-state
+        checkpoint every that-many accepted iterations, so that a killed run
+        resumes (CLI --ckpt-every / --resume) instead of restarting.
+        checkpoint_offset: iterations done before this call (recorded as
+        extra["iters_done"]).
+        resume_extra: the loaded checkpoint's extra dict (scipy_tol's live
+        tolerance level)."""
+        loss_fn = model.loss_fn()
+        carry = model.carry_in()
+        cglb_kind = model.kind in _CGLB_KINDS
+        live_extra: Dict = {}
+        iters = {"n": checkpoint_offset}
+
+        def feval_stats(state):
+            if isinstance(state, _cglb.CGLBAux):
+                return {"cg/steps": int(state.cg_steps),
+                        "cg/error": float(state.cg_residual_error)}
+            return {}
+
+        stats_fn = feval_stats if cglb_kind else None
 
         def sync_fn(params, state):
-            # the Logger's metric closures read the live model
+            # the parameters are live in the module already; publish the
+            # carry for the Logger's metric closures
             model.carry_out(state)
+            if checkpoint_every and checkpoint_dir is not None:
+                iters["n"] += 1
+                if iters["n"] % checkpoint_every == 0:
+                    cls.save_checkpoint(
+                        model, checkpoint_dir,
+                        extra={"iters_done": iters["n"], **live_extra})
 
-        res = _training.adam_minimize(model.loss_fn(), model.params,
-                                      model.carry_in(), num_steps, lr,
-                                      logger, sync_fn=sync_fn)
+        scipy_args = dict(logger=logger, feval_stats_fn=stats_fn,
+                          sync_fn=sync_fn)
+        plain_tol = not cglb_kind or model.run_cfg.v_is_external
+        if optimizer is None or optimizer == "scipy" or (
+                optimizer == "scipy_tol" and plain_tol):
+            # scipy_tol without CG in the loss (not CGLB, or v external):
+            # the tolerance has no effect, so the plain bridge runs
+            res = _training.scipy_minimize(loss_fn, model.params, carry,
+                                           num_steps, **scipy_args)
+        elif optimizer == "scipy4":
+            # 4 restarts, the inducing points frozen after the 2nd
+            res = _training.scipy_minimize(
+                loss_fn, model.params, carry, num_steps, attempts=4,
+                freeze_inducing_after=2, **scipy_args)
+        elif optimizer == "scipy_tol":
+            res = _training.scipy_tol_minimize(
+                loss_fn, model.loss_fn_tol(), model.params, carry, num_steps,
+                tol_start=model.run_cfg.max_error,
+                # the live level rides in every checkpoint; a resumed run
+                # re-enters the schedule where the killed one died
+                on_level=lambda m: live_extra.update(max_error=m),
+                tol_resume=(resume_extra or {}).get("max_error"),
+                **scipy_args)
+        elif optimizer.startswith("adam"):
+            lr = float(optimizer.split("_", maxsplit=1)[1])
+            res = _training.adam_minimize(loss_fn, model.params, carry,
+                                          num_steps, lr, logger,
+                                          sync_fn=sync_fn)
+        else:
+            raise _not_ported(f"optimizer {optimizer!r}",
+                              "queue 1, the L-BFGS and staged optimizers")
         model.carry_out(res.state)
         return res
 
@@ -287,8 +398,9 @@ class Torch:
 
         rmse_lpd = _metrics.rmse_and_lpd_fn(err_and_logdensity)
 
-        if model.kind == "sgpr":
+        if model.kind in _SGPR_KINDS:
             def core():
+                # sgprn2m reports its own bound as ``elbo``
                 loss = model.loss_value()
                 return {"elbo": -loss,
                         "titsias_upper_bound": model.upper_bound(),

@@ -7,12 +7,13 @@ Same grammar and options as ``cglb_tpu/experiments/cli.py:241-316``:
         cglb -m cglb -k Matern32 -i cv -M 2048 [-e 1.0]
 
 and the same artifacts in LOGDIR (``results.json``, ``logs.json``,
-``model.json``) with the same keys.  ``--device`` (default ``cuda``) is new;
-``--common-dtype mixed`` is an alias of float64.  Options and leaves that
-are not ported yet parse and then fail with an error naming their ROADMAP
-queue: optimizers other than ``adam_*``, the n2m/nm2/gpr leaves, ``--vzero``,
-``--vjoint``, ``--mesh``, ``--dispatch-bound`` and checkpoints.  The
-``metric``, ``gpr_metric`` and ``baseline`` commands are not ported yet.
+``model.json``, ``checkpoint.json`` with ``--ckpt-every``) with the same keys.
+``metric ... <leaf> -p model.json`` writes ``metric.npy`` and ``baseline
+mean|linear`` a ``results.json``, as the JAX CLI does.  ``--device`` (default
+``cuda``) is new; ``--common-dtype mixed`` is an alias of float64.  What is
+not ported yet parses and then fails with an error naming its ROADMAP queue:
+``-o lbfgs|lbfgs_native|staged``, the ``gpr`` leaf and ``gpr_metric``,
+``--mesh`` and ``--dispatch-bound``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from ..configs import (GPR_CONFIGS, INDUCING_VARIABLE_CONFIGS,
                        KERNEL_CONFIGS, SGPR_CONFIGS)
 from ..utils.logging import Logger
 from ..utils.serialization import dump_json
+from .baselines import linear_baseline, meanpred_baseline
 from .datasets import DatasetBundle, get_dataset
 
 __all__ = ["main", "build_parser"]
@@ -45,14 +47,18 @@ _CGLB = ("cglb", "cglbn2m", "cglbnm2")
 
 @dataclass(frozen=True)
 class _Action:
-    """The training run a leaf command's model config is handed to."""
+    """What to do with the model a leaf command's config builds."""
 
     backend: Torch
     seed: int
     logdir: str
     dataset: DatasetBundle
+    kind: str  # "train" | "metric"
     num_steps: int = 0
     optimizer: Optional[str] = None
+    metric_dst: Optional[Path] = None
+    ckpt_every: int = 0   # full-state checkpoint interval (iterations)
+    resume: bool = False  # continue from logdir/checkpoint.json if present
     holdout_interval: int = _HOLDOUT_INTERVAL
 
     def execute(self, model_cfg, param_file: Optional[str] = None) -> None:
@@ -60,32 +66,60 @@ class _Action:
                                           seed=self.seed)
         if param_file:
             model = self.backend.load(model, param_file)
+        if self.kind == "train":
+            self._train(model)
+        else:
+            self._metric(model)
+
+    def _train(self, model) -> None:
         backend, logdir = self.backend, self.logdir
         datasets = self.dataset.to_tuple()
+        num_steps = self.num_steps
+        done = 0
+        ckpt = Path(logdir, "checkpoint.json")
+        if self.resume and ckpt.exists():
+            model = backend.load_checkpoint(model, ckpt)
+            done = int(model.last_checkpoint_extra.get("iters_done", 0))
+            num_steps = max(num_steps - done, 0)
         metrics_fn = backend.metrics_fn(model, datasets)
         logger = Logger(logdir, metrics_fn,
                         lambda: backend.model_parameters(model),
-                        self.holdout_interval)
-        res = backend.optimize(model, datasets, self.num_steps, logger,
-                               self.optimizer)
+                        self.holdout_interval, include_feval_log=True)
+        res = backend.optimize(
+            model, datasets, num_steps, logger, self.optimizer,
+            checkpoint_every=self.ckpt_every,
+            checkpoint_dir=logdir if self.ckpt_every else None,
+            checkpoint_offset=done,
+            resume_extra=model.last_checkpoint_extra)
         backend.save(model, logdir)
 
         meta = {"id": logdir, "data": self.dataset.provenance}
         meta.update(res.info or {})
-        # train-time CG summaries from the holdout-sampled series (Adam logs
-        # no per-feval series), under the JAX CLI's keys
+        # Train-time CG cost: the final evaluation's cg/steps is taken at the
+        # converged warm start (about 0 steps), so the per-feval series is
+        # summarized beside it.  Adam logs no per-feval series: it falls
+        # back to the holdout-sampled one.
         train_stats = {}
         for key in ("cg/steps", "cg/error"):
-            series = logger.logs.get(key) or []
+            series = (logger.logs.get(f"{key}-per-feval")
+                      or logger.logs.get(key) or [])
             finite = np.asarray([v for v in series if np.isfinite(v)],
                                 dtype=float)
             if finite.size:
                 train_stats[f"{key}_train_mean"] = float(finite.mean())
                 train_stats[f"{key}_train_max"] = float(finite.max())
+                # the mean is dominated by line-search probes at extreme
+                # hyperparameters; the median is the central tendency
                 train_stats[f"{key}_train_median"] = float(np.median(finite))
         dump_json({**metrics_fn(), **train_stats, **meta},
                   Path(logdir, "results.json"))
         dump_json({**logger.logs, **meta}, Path(logdir, "logs.json"))
+
+    def _metric(self, model) -> None:
+        results = self.backend.metrics_fn(model, self.dataset.to_tuple())()
+        results["id"] = str(self.metric_dst.parent)
+        results["data"] = self.dataset.provenance
+        np.save(self.metric_dst, results)
 
 
 def _add_leaves(group: argparse.ArgumentParser) -> None:
@@ -141,11 +175,27 @@ def build_parser() -> argparse.ArgumentParser:
     train.add_argument("--holdout-interval", type=int,
                        default=_HOLDOUT_INTERVAL)
     _add_leaves(train)
+
+    metric = commands.add_parser("metric")
+    metric.add_argument("-d", "--dataset", required=True)
+    _add_leaves(metric)
+
+    gpr_metric = commands.add_parser("gpr_metric")
+    gpr_metric.add_argument("-d", "--dataset", required=True)
+    gpr_metric.add_argument("-k", "--kernel", choices=list(KERNEL_CONFIGS),
+                            required=True)
+    gpr_metric.add_argument("-p", "--param_file", required=True)
+
+    baseline = commands.add_parser("baseline")
+    baseline.add_argument("-d", "--dataset", required=True)
+    baseline.add_argument("baseline", choices=["mean", "linear"])
     return ap
 
 
 def _model_config(args):
     kernel = KERNEL_CONFIGS[args.kernel]()
+    if args.command == "gpr_metric":
+        return GPR_CONFIGS["gpr"](kernel)
     if args.leaf == "gpr":
         return GPR_CONFIGS[args.model_class](kernel)
     iv = INDUCING_VARIABLE_CONFIGS[args.inducing_variable](
@@ -161,8 +211,6 @@ def _unported(args) -> Optional[str]:
         return "--mesh (multi-GPU, ROADMAP.md queue 1)"
     if args.dispatch_bound:
         return "--dispatch-bound (ROADMAP.md queue 1)"
-    if args.ckpt_every or args.resume:
-        return "--ckpt-every / --resume (ROADMAP.md queue 1)"
     return None
 
 
@@ -174,24 +222,40 @@ def main(argv: Optional[List[str]] = None) -> None:
         parser.error(f"{unported} is not ported to cglb_tpu_torch yet")
     logdir = Path(args.logdir).expanduser().resolve()
     logdir.mkdir(exist_ok=True, parents=True)
+    Torch.set_default_float(args.float_type)
+    Torch.set_default_jitter(args.float_type)
+    Torch.set_seed(args.seed)
+    try:
+        dataset = get_dataset(args.dataset, dtype=_config.default_float(),
+                              split=args.seed)
+    except KeyError:
+        parser.error(f"Unknown dataset {args.dataset!r}")
+    if args.command == "baseline":
+        fns = {"linear": linear_baseline, "mean": meanpred_baseline}
+        results = fns[args.baseline](dataset)
+        results["id"] = args.baseline
+        results["data"] = dataset.provenance
+        dump_json(results, Path(logdir, "results.json"))
+        return
     matvec = args.matvec
     if args.keops is not None:
         matvec = "streaming" if args.keops else "dense"
     # --common-dtype: both values run fp64 common terms (native on the card)
     backend = Torch(device=args.device, matvec=matvec,
                     max_cg_iters=args.max_cg_iters)
-    backend.set_default_float(args.float_type)
-    backend.set_default_jitter(args.float_type)
-    backend.set_seed(args.seed)
-    try:
-        dataset = get_dataset(args.dataset, dtype=_config.default_float(),
-                              split=args.seed)
-    except KeyError:
-        parser.error(f"Unknown dataset {args.dataset!r}")
-    action = _Action(backend=backend, seed=args.seed, logdir=str(logdir),
-                     dataset=dataset, num_steps=args.num_steps,
-                     optimizer=args.optimizer,
-                     holdout_interval=args.holdout_interval)
+    common = dict(backend=backend, seed=args.seed, logdir=str(logdir),
+                  dataset=dataset)
+    if args.command == "train":
+        action = _Action(kind="train", num_steps=args.num_steps,
+                         optimizer=args.optimizer,
+                         ckpt_every=args.ckpt_every, resume=args.resume,
+                         holdout_interval=args.holdout_interval, **common)
+    elif args.command == "metric":
+        action = _Action(kind="metric",
+                         metric_dst=Path(logdir, "metric.npy"), **common)
+    else:  # gpr_metric
+        action = _Action(kind="metric", metric_dst=Path(
+            Path(args.param_file).parent, "gpr_metric.npy"), **common)
     action.execute(_model_config(args), args.param_file)
 
 

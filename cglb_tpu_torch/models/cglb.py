@@ -4,7 +4,7 @@ preconditioned CG (Artemev, Burt & van der Wilk, ICML 2021).
 Counterpart of ``cglb_tpu/models/cglb.py``:
 
     bound = -0.5 N D log 2pi
-          + logdet_bound                     (Jensen)
+          + logdet_bound                     (Jensen, or the nm2 / n2m variants)
           - ub                               (CG quad-form bound)
 
     quad:  v ~= (K + sigma^2 I)^-1 err by warm-started preconditioned CG
@@ -13,9 +13,11 @@ Counterpart of ``cglb_tpu/models/cglb.py``:
            detached v.
 
 The warm start ``v0`` ([D, N]) is an explicit input and output
-(``CGLBAux.v``); callers thread it through their loop.  The n2m and nm2
-log-det variants, vzero and the jointly optimized v (``v_is_external`` in the
-JAX package) are not ported yet (ROADMAP.md, queue 1).
+(``CGLBAux.v``); callers thread it through their loop.  With ``vzero`` or
+``joint_optimization`` (``v_is_external``) no CG runs: the bound is assembled
+at ``v0`` as given, and the gradient flows into it when it is a trainable
+``Param``'s value.  The n2m variant materializes K(X, X): O(N^2) memory, an
+ablation.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ from ..ops import preconditioners as _pc
 from ..ops.kuf import kuf as _kuf
 from ..ops.operators import make_dense_operator
 from .gaussian import mean_apply
-from .sgpr import CommonTerms, SGPRParams, common_terms
+from .sgpr import (CommonTerms, SGPRParams, common_terms,
+                   n2m_log_trace)
 
 __all__ = ["CGLBConfig", "CGLBAux", "init_v0", "bound", "loss",
            "PredictCache", "predict_prepare", "predict_from_cache",
@@ -47,9 +50,17 @@ class CGLBConfig:
     max_error: float = 1.0
     max_cg_iters: int = 100
     restart_cg_iters: int = 40
+    joint_optimization: bool = False
+    vzero: bool = False
     logdet_variant: str = "jensen"
     # dtype of the Nystrom preconditioner apply inside CG
     precond_dtype: str = "float32"
+
+    @property
+    def v_is_external(self) -> bool:
+        """True when v is not produced by CG (vzero, or v optimized jointly
+        with the parameters)."""
+        return self.joint_optimization or self.vzero
 
 
 class CGLBAux(NamedTuple):
@@ -65,11 +76,7 @@ def init_v0(N: int, output_dim: int = 1, dtype=None, device=None):
 
 def _logdet_bound(params: SGPRParams, ct: CommonTerms, X, Y,
                   variant: str) -> torch.Tensor:
-    """Jensen upper bound on 0.5 log|K + sigma^2 I|, negated."""
-    if variant != "jensen":
-        raise NotImplementedError(
-            f"logdet variant {variant!r} is not ported yet "
-            "(ROADMAP.md, queue 1: the logdet variants)")
+    """Upper bounds on 0.5 log|K + sigma^2 I| (negated), three variants."""
     N, D = Y.shape
     sigma_sq = params.noise_variance.value
     kd = params.kernel.kdiag(X)
@@ -77,9 +84,18 @@ def _logdet_bound(params: SGPRParams, ct: CommonTerms, X, Y,
     trace = torch.clamp(torch.sum(kd) / sigma_sq - torch.trace(ct.AAT),
                         min=0.0)
     logdiag_LB = torch.sum(torch.log(torch.diagonal(ct.LB)))
-    # log|K+s2I| <= log|Q+s2I| + N log(1 + tr(K-Q)/(s2 N))
-    return (-D * logdiag_LB - 0.5 * N * D * torch.log(sigma_sq)
-            - 0.5 * D * N * torch.log(1.0 + trace / N))
+    if variant == "jensen":
+        # log|K+s2I| <= log|Q+s2I| + N log(1 + tr(K-Q)/(s2 N))
+        return (-D * logdiag_LB - 0.5 * N * D * torch.log(sigma_sq)
+                - 0.5 * D * N * torch.log(1.0 + trace / N))
+    log_det_q = logdiag_LB + 0.5 * N * torch.log(sigma_sq)
+    if variant == "nm2":
+        # log|Q| + tr(K-Q)/sigma^2
+        return -(log_det_q + 0.5 * trace)
+    if variant == "n2m":
+        # log|Q| + n log(tr(Q^-1 K)/n); K(X, X) is materialized
+        return -(log_det_q + 0.5 * n2m_log_trace(params, ct, X))
+    raise ValueError(f"unknown logdet variant {variant!r}")
 
 
 def _make_precond(ct: CommonTerms, sigma_sq, cfg: CGLBConfig,
@@ -113,17 +129,21 @@ def _quad_form_bound(params: SGPRParams, ct: CommonTerms, X, Y, v0,
         matvec = make_dense_operator(params.kernel, X, sigma_sq)
     P = _make_precond(ct, sigma_sq, cfg)
 
-    v, stats = _cg.preconditioned_cg(
-        matvec_cg if matvec_cg is not None else matvec, err_t.detach(), v0,
-        P, cfg.max_error if max_error is None else max_error,
-        cfg.max_cg_iters, cfg.restart_cg_iters)
+    if cfg.v_is_external:
+        v = v0  # fixed zeros, or a trainable value the gradient flows into
+        stats = _cg.CGStats(steps=0, residual_error=0.0)
+    else:
+        v, stats = _cg.preconditioned_cg(
+            matvec_cg if matvec_cg is not None else matvec, err_t.detach(),
+            v0, P, cfg.max_error if max_error is None else max_error,
+            cfg.max_cg_iters, cfg.restart_cg_iters)
 
     Kv = matvec(v)
     r = err_t - Kv
     _, rz = _pc.mat_vec(P, r)
     lb = torch.sum(v * (r + 0.5 * Kv))
     ub = lb + 0.5 * torch.sum(rz)
-    return -ub, CGLBAux(v=v, cg_steps=stats.steps,
+    return -ub, CGLBAux(v=v.detach(), cg_steps=stats.steps,
                         cg_residual_error=stats.residual_error)
 
 
@@ -167,15 +187,15 @@ def predict_prepare(params: SGPRParams, X, Y, v0,
                     cg_tolerance: Optional[float] = 1e-3,
                     jitter: float = None,
                     matvec: Optional[Callable] = None) -> PredictCache:
-    """Common terms, the CG solve at ``cg_tolerance`` (None reuses v0 as
-    is) and the [M, D] residual projection, once."""
+    """Common terms, the CG solve at ``cg_tolerance`` (None, vzero and the
+    joint v reuse v0 as is) and the [M, D] residual projection, once."""
     sigma_sq = params.noise_variance.value
     sigma = torch.sqrt(sigma_sq)
     err = Y - mean_apply(params.mean, X)
     ct = common_terms(params, X, jitter)
     if matvec is None:
         matvec = make_dense_operator(params.kernel, X, sigma_sq)
-    if cg_tolerance is None:
+    if cg_tolerance is None or cfg.v_is_external:
         v = v0
     else:
         P = _make_precond(ct, sigma_sq, cfg)

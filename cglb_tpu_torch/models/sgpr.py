@@ -28,9 +28,9 @@ from ..ops.kuf import kuf as _kuf
 from ..transforms import Param
 from .gaussian import ConstantMean, mean_apply
 
-__all__ = ["SGPRParams", "CommonTerms", "common_terms", "elbo",
-           "upper_bound", "SGPRPredictCache", "predict_prepare",
-           "predict_from_cache", "predict_f"]
+__all__ = ["SGPRParams", "CommonTerms", "common_terms", "elbo", "elbo_n2m",
+           "n2m_log_trace", "upper_bound", "SGPRPredictCache",
+           "predict_prepare", "predict_from_cache", "predict_f"]
 
 
 def _solve_lower(L, B):
@@ -55,6 +55,10 @@ class SGPRParams(nn.Module):
         self.noise_variance = Param.positive(noise_variance, lower,
                                              dtype=dtype, device=device)
         self.mean = ConstantMean(output_dim, dtype=dtype, device=device)
+        # the CG vector as a trainable Param when it is optimized jointly
+        # with the parameters (set by the backend; registered last, as in
+        # the JAX package's leaf order)
+        self.v0 = None
 
     @property
     def num_inducing(self) -> int:
@@ -133,6 +137,45 @@ def elbo(params: SGPRParams, X, Y, jitter: float = None) -> torch.Tensor:
     kd = params.kernel.kdiag(X)
     bound = bound - 0.5 * D * (torch.sum(kd) / sigma_sq - torch.trace(AAT))
     return bound
+
+
+def n2m_log_trace(params: SGPRParams, ct: CommonTerms, X) -> torch.Tensor:
+    """N log(tr(Q^-1 (K + s2 I)) / N) of the n2m variants, with
+    C = LB^-1 A and tr(Q^-1 (K + s2 I)) = (tr(K + s2 I) - tr(C (K + s2 I)
+    C^T)) / s2.  The s2 I part of both traces is added in closed form, so
+    K + s2 I is not formed beside K."""
+    N = X.shape[0]
+    sigma_sq = params.noise_variance.value
+    K = params.kernel.K(X)
+    C = _solve_lower(ct.LB, ct.A)
+    trace_kff = torch.trace(K) + N * sigma_sq
+    trace_qrest = torch.sum((C @ K) * C) + sigma_sq * torch.sum(C * C)
+    # trace_kff - trace_qrest >= N sigma^2 mathematically (K >= Q); clamped
+    # at that minimum so that cancellation at large M can neither NaN the
+    # log nor blow the N-scaled term up
+    floor = N * sigma_sq
+    return N * (torch.log(torch.maximum(trace_kff - trace_qrest, floor))
+                - math.log(N) - torch.log(sigma_sq))
+
+
+def elbo_n2m(params: SGPRParams, X, Y, jitter: float = None
+             ) -> torch.Tensor:
+    """SGPRN2M: the SGPR bound with the trace term replaced by the N^2 M
+    log-trace term -0.5 n log(tr(Q^-1 K)/n).  Materializes K(X, X): O(N^2)
+    memory, an ablation."""
+    ct = common_terms(params, X, jitter)
+    err = Y - mean_apply(params.mean, X)
+    N, D = Y.shape
+    sigma_sq = params.noise_variance.value
+    sigma = torch.sqrt(sigma_sq)
+    c = _solve_lower(ct.LB, ct.A @ err) / sigma
+
+    bound = -0.5 * N * D * math.log(2.0 * math.pi)
+    bound = bound - D * torch.sum(torch.log(torch.diagonal(ct.LB)))
+    bound = bound - 0.5 * N * D * torch.log(sigma_sq)
+    bound = bound - 0.5 * torch.sum(torch.square(err)) / sigma_sq
+    bound = bound + 0.5 * torch.sum(torch.square(c))
+    return bound - 0.5 * n2m_log_trace(params, ct, X)
 
 
 def upper_bound(params: SGPRParams, X, Y, jitter: float = None

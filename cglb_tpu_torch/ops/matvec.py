@@ -286,6 +286,7 @@ def launch_matvec(rows: Prepared, cols: Prepared, p: torch.Tensor,
         torch.cuda.current_stream(p.device).cuda_stream)
     _build.check(rc, "cglb_matvec")
     launch_matvec.launches += 1
+    launch_matvec.accurate_launches += int(accurate)
     out = reduce_segments(part)
     if row_part is not None:
         out = out + reduce_segments(row_part, acc)
@@ -293,6 +294,7 @@ def launch_matvec(rows: Prepared, cols: Prepared, p: torch.Tensor,
 
 
 launch_matvec.launches = 0
+launch_matvec.accurate_launches = 0  # those of the accurate tier among them
 
 
 def launch_ls_grad(rows: Prepared, cols: Prepared, p: torch.Tensor,

@@ -4,13 +4,15 @@ A copy of ``cglb_tpu/utils/logging.py`` without its TensorBoard sink
 (``utils/tfevents.py`` is not ported yet; ROADMAP.md).  Elapsed time excludes
 metric evaluation (the StopWatch is paused around it); metrics and
 parameters (inducing points excluded) are recorded every
-``holdout_interval`` optimizer steps into the in-memory logs that the CLI
-dumps to ``logs.json``.
+``holdout_interval`` optimizer steps, and optionally CG stats on every
+function evaluation (``<key>-per-feval``), into the in-memory logs that the
+CLI dumps to ``logs.json``.
 """
 
 from __future__ import annotations
 
 import time
+from contextlib import contextmanager
 from typing import Callable, Dict
 
 import numpy as np
@@ -58,9 +60,11 @@ class Logger:
         metrics_fn: Callable[[], Dict[str, float]],
         model_parameters_fn: Callable[[], Dict[str, np.ndarray]],
         holdout_interval: int = 10,
+        include_feval_log: bool = False,
     ):
         self.logdir = logdir
         self.holdout_interval = holdout_interval
+        self.include_feval_log = include_feval_log
         self._metrics_fn = metrics_fn
         self._model_parameters_fn = model_parameters_fn
         self._logs: Dict[str, list] = {}
@@ -83,6 +87,20 @@ class Logger:
     def log(self, **kwargs):
         for k, v in kwargs.items():
             self._logs.setdefault(k, []).append(v)
+
+    def log_for_feval(self, **kwargs):
+        if self.include_feval_log:
+            self.log(**{f"{k}-per-feval": v for k, v in kwargs.items()})
+
+    @contextmanager
+    def no_recording(self):
+        holdout, feval = self.holdout_interval, self.include_feval_log
+        self.holdout_interval = -1
+        self.include_feval_log = False
+        try:
+            yield
+        finally:
+            self.holdout_interval, self.include_feval_log = holdout, feval
 
     def __call__(self, step, *args):
         iteration = self.counter

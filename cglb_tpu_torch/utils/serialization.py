@@ -1,8 +1,8 @@
 """Numpy-aware JSON save/load for model parameters and results.
 
 A copy of ``cglb_tpu/utils/serialization.py`` (numpy only; that module
-cannot be imported without jax), so a ``model.json`` written by either
-package loads into the other.
+cannot be imported without jax), so a ``model.json`` or ``checkpoint.json``
+written by either package loads into the other.
 
 Replaces the reference's json_tricks dependency (tensorflow/interface.py:358-383,
 cli.py:105-109) with a small first-party encoder: numpy arrays round-trip through
@@ -12,12 +12,14 @@ nested lists with dtype/shape metadata.
 from __future__ import annotations
 
 import json
+import os
 from pathlib import Path
 from typing import Any, Dict
 
 import numpy as np
 
-__all__ = ["dump_json", "load_json", "save_model_params", "load_model_params"]
+__all__ = ["dump_json", "load_json", "save_model_params", "load_model_params",
+           "save_checkpoint", "load_checkpoint"]
 
 
 class _NumpyEncoder(json.JSONEncoder):
@@ -67,3 +69,23 @@ def save_model_params(params_dict: Dict[str, np.ndarray], logdir) -> None:
 def load_model_params(filepath) -> Dict[str, np.ndarray]:
     return load_json(filepath)
 
+
+def save_checkpoint(logdir, params_dict: Dict[str, np.ndarray],
+                    v0=None, extra: Dict = None) -> None:
+    """Full-state checkpoint: the parameters and the CG warm start, so that
+    a resumed run does not pay the cold-start CG cost."""
+    state = {
+        "params": {k: np.asarray(v) for k, v in params_dict.items()},
+        "v0": None if v0 is None else np.asarray(v0),
+        "extra": extra or {},
+    }
+    # atomic replace: a crash mid-write (what checkpoints exist for) must
+    # not leave a truncated checkpoint.json behind
+    path = Path(logdir) / "checkpoint.json"
+    tmp = path.with_suffix(".json.tmp")
+    dump_json(state, tmp)
+    os.replace(tmp, path)
+
+
+def load_checkpoint(filepath) -> Dict:
+    return load_json(filepath)

@@ -25,7 +25,19 @@ Phases, each of which fails the run (non-zero exit) on error:
 4. the anchor: the parameters of the TPU run runs/kin40k-2000-scipy4-r4
    loaded into the port on the same synthetic data; elbo and the upper bound
    must match that run's results.json, the CGLB bound at converged v must lie
-   between them, and test rmse/nlpd must agree.
+   between them, and test rmse/nlpd must agree;
+5. the scipy4 protocol run, whole: ``train -n 2000 -d Wilson_kin40k -o scipy4
+   cglb -m cglb -k Matern32 -i cv -M 2048`` under a wall-clock guard, with
+   its attempts, the frozen inducing points, the bracket at a re-solved v,
+   the launches of each kernel and loss / test rmse / nlpd beside the TPU
+   run's;
+6. the variants, 2 Adam steps each through the CLI: cglbnm2, cglbn2m (with
+   its peak device memory), cglb --vjoint (v0 must move), cglb --vzero,
+   sgprn2m;
+7. ``-o scipy_tol -n 30 -e 1.0``: at least one tightened level, whose CG
+   runs on kernel 1's accurate tier only;
+8. ``-o scipy -n 6 --ckpt-every 2``, then ``--resume -n 10`` in the same
+   directory: at most 4 more iterations, from the saved warm start.
 
 With ``--compare TREE ...`` no phase runs.  Each tree (a directory holding
 a ``cglb_tpu_torch`` package, such as an older commit unpacked with ``git
@@ -42,6 +54,8 @@ repository beside it, the script exits non-zero before printing a result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import math
 import re
@@ -71,9 +85,17 @@ TOL = {  # relative to max |plain|
 PEAK_FLOPS = {"fp32": 67e12, "fp64": 34e12}
 PEAK_BYTES = 3.35e12
 ANCHOR = ROOT / "runs" / "kin40k-2000-scipy4-r4"
-CLI_ARGS = ["-t", "fp64", "-s", "0", "train", "-n", "5", "-d",
-            "Wilson_kin40k", "-o", "adam_0.01", "cglb", "-m", "cglb", "-k",
-            "Matern32", "-i", "cv", "-M", str(M)]
+_HEAD = ["-t", "fp64", "-s", "0", "train"]
+_DATA = ["-d", "Wilson_kin40k"]
+_MODEL = ["-k", "Matern32", "-i", "cv", "-M", str(M)]
+CLI_ARGS = _HEAD + ["-n", "5"] + _DATA + ["-o", "adam_0.01", "cglb", "-m",
+                                          "cglb"] + _MODEL
+SCIPY4_ARGS = _HEAD + ["-n", "2000"] + _DATA + ["-o", "scipy4", "cglb", "-m",
+                                                "cglb"] + _MODEL
+# the whole scipy4 run must end within this, or the script fails
+SCIPY4_GUARD_S = 420.0
+# the TPU run runs/kin40k-2000-scipy4-r4: loss, test rmse, test nlpd
+REFERENCE = {"loss": 19274.1, "test/rmse": 0.4620, "test/nlpd": 0.6470}
 
 
 class SmokeFailure(RuntimeError):
@@ -366,10 +388,14 @@ def phase_kernels(results: dict) -> None:
         want = _plain_function_grads(X, family, p, var, ls, g)
         for name, got, ref in zip(("dp", "dvar", "dls"),
                                   (pv.grad, vv.grad, lv.grad), want):
-            e, _ = rel_err(got.reshape(ref.shape), ref)
+            # dp is one more accurate-tier launch of kernel 1 (g K^T)
+            tol = TOL["matvec_accurate" if name == "dp" else "backward"]
+            e, e_abs = rel_err(got.reshape(ref.shape), ref)
             print(f"[kernels] {family} backward {name}: rel err {e:.3e} "
-                  f"(bound {TOL['backward']:g})", flush=True)
-            require(e <= TOL["backward"], f"{family} backward {name}")
+                  f"(bound {tol:g})", flush=True)
+            require(e <= tol, f"{family} backward {name}")
+            if name == "dp":
+                dp_err = (e, e_abs)
 
         ls_plain = _mv.ls_grad_unit_plain(rows.xg, rows.xg, p, g, family)
         ls_k = _mv.launch_ls_grad(rows, rows, p, g)
@@ -428,6 +454,8 @@ def phase_kernels(results: dict) -> None:
             results["streaming_matvec"]["ms_cg_tier"] = timings[
                 "streaming_matvec_cg"][0]
             results["streaming_matvec"]["materialized_mv_ms"] = lib_ms
+            results["streaming_matvec"]["dp_rel_err"] = dp_err[0]
+            results["streaming_matvec"]["dp_max_abs_err"] = dp_err[1]
         del rows, cols, plain, acc, cg, cross, cross_t, kuf_k, e_k
         del kuf_p, e_p
         del repeats
@@ -465,34 +493,170 @@ def _counters():
             "ls_grad": _mv.launch_ls_grad, "kuf": _kuf.launch_kuf}
 
 
-def phase_main_path(results: dict) -> None:
+def _read_counts() -> dict:
+    from cglb_tpu_torch.ops import matvec as _mv
+
+    counts = {name: fn.launches for name, fn in _counters().items()}
+    counts["accurate"] = _mv.launch_matvec.accurate_launches
+    return counts
+
+
+def _zero_counts() -> None:
+    from cglb_tpu_torch.ops import matvec as _mv
+
+    for fn in _counters().values():
+        fn.launches = 0
+    _mv.launch_matvec.accurate_launches = 0
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+@contextlib.contextmanager
+def _watched(seen: dict, guard_s: float = None, initial_loss: bool = False):
+    """Watch the CLI's training run from outside: ``seen`` gets the model,
+    the warm start the optimizer began from, the loss at the initial
+    parameters (optional; its launches are recorded to be taken off), the
+    inducing points as they were frozen, the optimizer's seconds with and
+    without the logger's metric evaluations and the launches of those, and a
+    tally of what ran inside the forward of the tolerance-level loss.  With
+    ``guard_s`` an objective evaluation that starts later than that many
+    seconds after the optimizer did fails the script."""
+    from cglb_tpu_torch import backend as _backend
+    from cglb_tpu_torch.utils import training as _training
+
+    real_optimize = _backend.Torch.optimize.__func__
+    real_freeze = _training._freeze_inducing
+
+    def guarded(make_loss, t0, tally=None):
+        def make():
+            fn = make_loss()
+
+            def loss(*args):
+                if guard_s is not None:
+                    require(time.perf_counter() - t0 <= guard_s,
+                            f"the run exceeded its {guard_s:g} s guard")
+                before = _read_counts()
+                out = fn(*args)
+                if tally is not None:
+                    d = _delta(_read_counts(), before)
+                    tally["calls"] += 1
+                    tally["accurate"] += d["accurate"]
+                    tally["cg_tier"] += d["streaming_matvec"] - d["accurate"]
+                    tally["cg_steps"] += out[1].cg_steps
+                return out
+
+            return loss
+
+        return make
+
+    def optimize(cls, model, datasets, num_steps, logger, *args, **kw):
+        seen["model"] = model
+        seen["num_steps"] = num_steps
+        seen["v0_start"] = None if model.v0 is None else model.v0.clone()
+        seen["metric_launches"] = dict.fromkeys(_read_counts(), 0)
+        if initial_loss:
+            before = _read_counts()
+            v0 = model.v0.clone()
+            seen["initial_loss"] = model.loss_value()
+            model.v0, model.cg_steps, model.cg_residual_error = v0, 0, 0.0
+            seen["initial_loss_launches"] = _delta(_read_counts(), before)
+        metrics = logger._metrics_fn
+
+        def counted_metrics():
+            before = _read_counts()
+            out = metrics()
+            d = _delta(_read_counts(), before)
+            for k in d:
+                seen["metric_launches"][k] += d[k]
+            return out
+
+        logger._metrics_fn = counted_metrics
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seen["tol"] = dict.fromkeys(("calls", "accurate", "cg_tier",
+                                     "cg_steps"), 0)
+        model.loss_fn = guarded(model.loss_fn, t0)
+        model.loss_fn_tol = guarded(model.loss_fn_tol, t0, seen["tol"])
+        before = _read_counts()
+        res = real_optimize(cls, model, datasets, num_steps, logger, *args,
+                            **kw)
+        torch.cuda.synchronize()
+        seen["optimize_s"] = time.perf_counter() - t0
+        seen["train_s"] = logger.timer.get_elapsed_time()
+        seen["optimize_launches"] = _delta(_read_counts(), before)
+        logger._metrics_fn = metrics
+        del model.loss_fn, model.loss_fn_tol  # back to the class's methods
+        return res
+
+    def freeze(params):
+        seen.setdefault("frozen_Z", params.inducing_Z.raw.detach().clone())
+        return real_freeze(params)
+
+    _backend.Torch.optimize = classmethod(optimize)
+    _training._freeze_inducing = freeze
+    try:
+        yield seen
+    finally:
+        _backend.Torch.optimize = classmethod(real_optimize)
+        _training._freeze_inducing = real_freeze
+
+
+def run_cli(tail, logdir: str, **watch) -> dict:
+    """The port's CLI in-process on the card, in ``logdir``: results.json,
+    logs.json, the wall seconds, the kernels' launches over the run (counts
+    set to 0 just before, read just after; those of an extra initial-loss
+    evaluation taken off) and what :func:`_watched` saw."""
     from cglb_tpu_torch.experiments import cli
     from cglb_tpu_torch.utils.serialization import load_json
 
-    with tempfile.TemporaryDirectory() as logdir:
-        counters = _counters()
-        for fn in counters.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        cli.main(["-l", logdir] + CLI_ARGS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in counters.items()}
-        res = load_json(Path(logdir, "results.json"))
-    print(f"[main] CLI run ({' '.join(CLI_ARGS)}): {wall:.2f} s wall, "
-          f"launches {launches}", flush=True)
+    seen: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with _watched(seen, **watch):
+        cli.main(["-l", logdir] + list(tail))
+    torch.cuda.synchronize()
+    seen["wall_s"] = time.perf_counter() - t0
+    launches = _read_counts()
+    if "initial_loss_launches" in seen:
+        launches = _delta(launches, seen["initial_loss_launches"])
+    seen["launches"] = launches
+    seen["peak_bytes"] = torch.cuda.max_memory_allocated()
+    seen["res"] = load_json(Path(logdir, "results.json"))
+    seen["logs"] = load_json(Path(logdir, "logs.json"))
+    require(seen["res"]["data"] == "synthetic", "kin40k stand-in expected")
+    return seen
+
+
+def finite_metrics(res: dict, tag: str) -> dict:
     metrics = {k: v for k, v in res.items() if isinstance(v, float)}
-    print("[main] results.json: " + json.dumps(metrics), flush=True)
+    print(f"[{tag}] results.json: " + json.dumps(metrics), flush=True)
     require(all(math.isfinite(v) for v in metrics.values()),
-            "non-finite metric in results.json")
-    require(res["data"] == "synthetic", "kin40k stand-in expected")
+            f"{tag}: non-finite metric in results.json")
+    return metrics
+
+
+def require_all_launched(launches: dict, tag: str) -> None:
+    for name in _counters():
+        require(launches[name] > 0,
+                f"{tag}: kernel {name} was not launched")
+
+
+def phase_main_path(results: dict) -> None:
+    with tempfile.TemporaryDirectory() as logdir:
+        out = run_cli(CLI_ARGS, logdir)
+    res, launches = out["res"], out["launches"]
+    print(f"[main] CLI run ({' '.join(CLI_ARGS)}): {out['wall_s']:.2f} s "
+          f"wall, launches {launches}", flush=True)
+    finite_metrics(res, "main")
     require(res["elbo"] <= res["titsias_upper_bound"], "elbo > upper")
     require(res["cg_lower_bound"] <= res["titsias_upper_bound"],
             "cg_lower_bound > upper")
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched on the main path")
-        results[name]["launches"] = count
-    results["_cli_wall_s"] = wall
+    require_all_launched(launches, "main")
+    for name in _counters():
+        results[name]["launches_adam_cli"] = launches[name]
 
 
 def warm_steps() -> dict:
@@ -570,7 +734,7 @@ def phase_anchor() -> None:
     from cglb_tpu_torch.models.sgpr import SGPRParams
     from cglb_tpu_torch.ops.kernels import Matern32
     from cglb_tpu_torch.utils.serialization import load_json
-    from cglb_tpu_torch.utils.training import from_jax_parameter_dict
+    from cglb_tpu_torch.utils.flatten import assign_parameters
 
     _config.set_default_float("fp64")
     _config.set_default_jitter("fp64")
@@ -583,7 +747,7 @@ def phase_anchor() -> None:
     dev = backend.device
     params = SGPRParams(Matern32(D, device=dev), saved[".inducing_Z"],
                         device=dev)
-    from_jax_parameter_dict(params, saved)
+    assign_parameters(params, saved)
     X, Y = (torch.as_tensor(a, device=dev) for a in bundle.train)
     model = Model("cglb", params, (X, Y), CGLBConfig(max_error=1e-3))
     got = backend.metrics_fn(model, bundle.to_tuple())()
@@ -604,6 +768,200 @@ def phase_anchor() -> None:
             <= 1e-2 * want["test/rmse"], "anchor test/rmse")
     require(abs(got["test/nlpd"] - want["test/nlpd"]) <= 0.01,
             "anchor test/nlpd")
+
+
+# --------------------------------------------------------------------------
+# phases 5-8: the scipy bridge, the variants, checkpoints
+# --------------------------------------------------------------------------
+
+
+def phase_scipy4(results: dict, card: str) -> None:
+    """The reference protocol's scipy4 run, whole."""
+    from cglb_tpu_torch.utils.serialization import load_json
+
+    with tempfile.TemporaryDirectory() as logdir:
+        out = run_cli(SCIPY4_ARGS, logdir, guard_s=SCIPY4_GUARD_S,
+                      initial_loss=True)
+        saved = load_json(Path(logdir, "model.json"))
+    res, launches, model = out["res"], out["launches"], out["model"]
+    finite_metrics(res, "scipy4")
+    attempts = res["opt/attempts"]
+    iters, fevals = res["opt/num_iters"], res["opt/num_fevals"]
+    print(f"[scipy4] attempts: {json.dumps(attempts)}", flush=True)
+    require(1 <= len(attempts) <= 4, "scipy4: more than 4 attempts")
+    require(sum(a["nit"] for a in attempts) == iters,
+            "scipy4: the attempts' nit do not sum to opt/num_iters")
+    require(sum(a["nfev"] for a in attempts) == fevals,
+            "scipy4: the attempts' nfev do not sum to opt/num_fevals")
+    require(out["optimize_s"] <= SCIPY4_GUARD_S, "scipy4: guard exceeded")
+    if len(attempts) > 2:
+        same = np.array_equal(out["frozen_Z"].cpu().numpy(),
+                              saved[".inducing_Z"])
+        print("[scipy4] inducing_Z bit-identical from the start of attempt "
+              f"3 to model.json: {same}", flush=True)
+        require(same, "scipy4: frozen inducing points moved")
+        require(not model.params.inducing_Z.trainable,
+                "scipy4: inducing points still trainable after attempt 2")
+    else:
+        print(f"[scipy4] {len(attempts)} attempts: the freeze did not "
+              "engage", flush=True)
+    require_all_launched(launches, "scipy4")
+    feval_launches = _delta(out["optimize_launches"], out["metric_launches"])
+    per_feval = {k: v / fevals for k, v in feval_launches.items()}
+    print(f"[scipy4] {iters} iterations, {fevals} fevals, "
+          f"{res['opt/penalty_fevals']} penalty fevals; optimizer "
+          f"{out['optimize_s']:.2f} s wall, {out['train_s']:.2f} s without "
+          f"the logger's metrics = {out['train_s'] / fevals:.4f} s per "
+          f"feval; CLI run {out['wall_s']:.2f} s; CG steps per feval median "
+          f"{res['cg/steps_train_median']:g}, mean "
+          f"{res['cg/steps_train_mean']:.2f}, max "
+          f"{res['cg/steps_train_max']:g} ({card})", flush=True)
+    print(f"[scipy4] launches over the CLI run {launches}; in the objective "
+          f"evaluations {feval_launches} = per feval "
+          + json.dumps({k: round(v, 2) for k, v in per_feval.items()}),
+          flush=True)
+    print(f"[scipy4] initial loss {out['initial_loss']:.4f}; final loss "
+          f"{res['loss']:.4f} / test rmse {res['test/rmse']:.4f} / test "
+          f"nlpd {res['test/nlpd']:.4f}; TPU run {REFERENCE['loss']} / "
+          f"{REFERENCE['test/rmse']} / {REFERENCE['test/nlpd']}", flush=True)
+    require(res["loss"] < out["initial_loss"],
+            "scipy4: the final loss is not below the initial loss")
+    require(res["test/rmse"] <= 0.47, "scipy4: test rmse above 0.47")
+    loss_rel = abs(res["loss"] - REFERENCE["loss"]) / REFERENCE["loss"]
+    rmse_diff = abs(res["test/rmse"] - REFERENCE["test/rmse"])
+    inside = loss_rel <= 0.01 and rmse_diff <= 0.005
+    print(f"[scipy4] parity with the TPU run's optimum: loss rel diff "
+          f"{loss_rel:.3e} (1e-2), rmse diff {rmse_diff:.3e} (5e-3): "
+          + ("inside" if inside else "OUTSIDE (see ROADMAP.md section 3)"),
+          flush=True)
+
+    # The bracket at a re-solved v (max_error 1e-3) from the final
+    # parameters.  The run's own preconditioner is applied in fp32, which
+    # loses its +I against A A^T once variance / noise grows large, and CG
+    # then stalls or diverges: its outcome is printed, and the bracket is
+    # held with the fp64 preconditioner, from the same warm start.
+    elbo, upper = model.elbo(), model.upper_bound()
+    warm = model.v0.clone()
+    solved = {}
+    for dtype in (model.run_cfg.precond_dtype, "float64"):
+        model.v0 = warm.clone()
+        model.run_cfg = dataclasses.replace(model.run_cfg, max_error=1e-3,
+                                            precond_dtype=dtype)
+        solved[dtype] = (-model.loss_value(), model.cg_steps,
+                         model.cg_residual_error)
+        print(f"[scipy4] re-solve at max_error 1e-3, {dtype} "
+              f"preconditioner: cg_lower_bound {solved[dtype][0]:.4f}, "
+              f"{solved[dtype][1]} CG steps, residual error "
+              f"{solved[dtype][2]:.3e}", flush=True)
+    cg_lb, _, residual = solved["float64"]
+    print(f"[scipy4] elbo {elbo:.4f} <= cg_lower_bound {cg_lb:.4f} <= upper "
+          f"{upper:.4f}", flush=True)
+    require(residual <= 1e-3, "scipy4: the re-solve of v did not converge")
+    require(elbo <= cg_lb <= upper, "scipy4: the bracket does not hold")
+    for name in _counters():
+        results[name]["launches_scipy4_run"] = launches[name]
+        results[name]["launches_per_scipy_feval"] = per_feval[name]
+    results["_scipy4"] = {
+        "iterations": iters, "fevals": fevals,
+        "optimize_s": out["optimize_s"], "train_s": out["train_s"],
+        "loss": res["loss"], "test/rmse": res["test/rmse"],
+        "test/nlpd": res["test/nlpd"]}
+
+
+def _release(out: dict) -> None:
+    out.pop("model", None)
+    torch.cuda.empty_cache()
+
+
+def phase_variants() -> None:
+    """2 Adam steps of each variant through the CLI."""
+    from cglb_tpu_torch.utils.serialization import load_json
+
+    variants = [("cglbnm2", []), ("cglbn2m", []), ("cglb", ["--vjoint"]),
+                ("cglb", ["--vzero"]), ("sgprn2m", [])]
+    for leaf, flags in variants:
+        tag = " ".join([leaf] + flags)
+        tail = (_HEAD + ["-n", "2"] + _DATA + ["-o", "adam_0.01", leaf, "-m",
+                                               leaf] + _MODEL + flags)
+        with tempfile.TemporaryDirectory() as logdir:
+            out = run_cli(tail, logdir)
+            saved = load_json(Path(logdir, "model.json"))
+        res = out["res"]
+        finite_metrics(res, tag)
+        print(f"[variants] {tag}: loss {res['loss']:.4f}, {out['wall_s']:.2f}"
+              f" s wall, peak device memory "
+              f"{out['peak_bytes'] / 2 ** 30:.2f} GiB, launches "
+              f"{out['launches']}", flush=True)
+        require(math.isfinite(res["loss"]), f"{tag}: loss")
+        require(out["launches"]["kuf"] > 0, f"{tag}: kernel 3 not launched")
+        if flags == ["--vjoint"]:
+            moved = float(np.abs(saved[".v0"]).max())
+            print(f"[variants] --vjoint: max |v0| after 2 steps {moved:.3e} "
+                  "(from zeros)", flush=True)
+            require(moved > 0.0, "--vjoint: v0 did not move")
+            # the gradient with respect to v is kernel 1's dp launch
+            require(out["launches"]["streaming_matvec"] > 0,
+                    "--vjoint: kernel 1 not launched")
+        _release(out)
+
+
+def phase_scipy_tol() -> None:
+    tail = (_HEAD + ["-n", "30"] + _DATA + ["-o", "scipy_tol", "cglb", "-m",
+                                            "cglb"] + _MODEL + ["-e", "1.0"])
+    with tempfile.TemporaryDirectory() as logdir:
+        out = run_cli(tail, logdir, guard_s=SCIPY4_GUARD_S)
+    res, tol = out["res"], out["tol"]
+    finite_metrics(res, "scipy_tol")
+    levels = res["opt/levels"]
+    print("[scipy_tol] levels: " + json.dumps(
+        [{"max_error": lv["max_error"], "nit": lv["nit"],
+          "nfev": sum(a["nfev"] for a in lv["attempts"])} for lv in levels])
+        + f"; inside the tightened levels' loss: {json.dumps(tol)}; "
+        f"{out['optimize_s']:.2f} s", flush=True)
+    require(len(levels) >= 2, "scipy_tol: no tightened level was reached")
+    require(levels[1]["max_error"] < levels[0]["max_error"],
+            "scipy_tol: the second level is not tighter")
+    require(tol["calls"] > 0 and tol["cg_steps"] > 0,
+            "scipy_tol: no CG step ran in a tightened level")
+    require(tol["cg_tier"] == 0,
+            "scipy_tol: the CG tier ran inside a tightened level")
+    # cg_init, every step and the assembly launch the accurate tier
+    require(tol["accurate"] >= tol["cg_steps"] + 2 * tol["calls"],
+            "scipy_tol: CG did not run on the accurate tier")
+    require_all_launched(out["launches"], "scipy_tol")
+    _release(out)
+
+
+def phase_checkpoint() -> None:
+    from cglb_tpu_torch.utils.serialization import load_json
+
+    def tail(n, *extra):
+        return (_HEAD + ["-n", str(n)] + _DATA
+                + ["-o", "scipy", "--ckpt-every", "2", *extra, "cglb", "-m",
+                   "cglb"] + _MODEL)
+
+    with tempfile.TemporaryDirectory() as logdir:
+        first = run_cli(tail(6), logdir)
+        ckpt = load_json(Path(logdir, "checkpoint.json"))
+        done = ckpt["extra"]["iters_done"]
+        _release(first)
+        second = run_cli(tail(10, "--resume"), logdir)
+    print(f"[checkpoint] first run {first['res']['opt/num_iters']} "
+          f"iterations, checkpoint at {done}; resumed with a budget of "
+          f"{second['num_steps']}, ran {second['res']['opt/num_iters']}; "
+          f"loss {first['res']['loss']:.4f} -> {second['res']['loss']:.4f}",
+          flush=True)
+    require(done == 6 and first["res"]["opt/num_iters"] == 6,
+            "checkpoint: the first run did not checkpoint at 6 iterations")
+    require(second["num_steps"] == 4
+            and second["res"]["opt/num_iters"] <= 4,
+            "checkpoint: the resumed run took more than the rest of the "
+            "budget")
+    require(np.array_equal(second["v0_start"].cpu().numpy(), ckpt["v0"])
+            and float(np.abs(ckpt["v0"]).max()) > 0.0,
+            "checkpoint: the resumed run did not start from the saved v0")
+    require(math.isfinite(second["res"]["loss"]), "checkpoint: loss")
+    _release(second)
 
 
 # --------------------------------------------------------------------------
@@ -682,6 +1040,13 @@ def main() -> int:
         kernels[name]["launches_per_step"] = steps[
             f"launches per step, {name}"]
     phase_anchor()
+    phase_scipy4(kernels, card)
+    phase_variants()
+    phase_scipy_tol()
+    phase_checkpoint()
+    for name in _counters():  # over both main paths
+        kernels[name]["launches"] = (kernels[name]["launches_adam_cli"]
+                                     + kernels[name]["launches_scipy4_run"])
 
     sources = {"streaming_matvec": ("cglb_tpu_torch/csrc/matvec_kernels.cuh",
                                     "cglb_tpu/ops/matvec_pallas.py:164"),
@@ -691,7 +1056,8 @@ def main() -> int:
                        "cglb_tpu/ops/kuf_pallas.py:186")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         **kernels[name]} for name, (src, rep) in sources.items()]}
+         **kernels[name]} for name, (src, rep) in sources.items()],
+        "scipy4_run": kernels["_scipy4"]}
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """PyTorch port on the card: each CUDA kernel against its plain version at
 small shapes, including the padded widths (D > 8, B not a power of two),
 rectangular matvecs and the symmetric path (one prepared point set),
-bitwise-equal repeat launches, and a short CLI run that must launch all
-three.
+bitwise-equal repeat launches, kernel 1's gradient with respect to its
+vector, one evaluation of the scipy bridge against the CPU, and short CLI
+runs that must launch all three.
 
 Marked ``cuda``; skipped without a card.  This file imports neither jax nor
 cglb_tpu, so it runs where they are absent:
@@ -163,4 +164,81 @@ def test_cli_on_the_card_launches_all_kernels(dev, tmp_path, monkeypatch):
     assert all(fn.launches > 0 for fn in counters)
     res = load_json(tmp_path / "results.json")
     assert np.isfinite(res["cg_lower_bound"])
+    assert res["elbo"] <= res["titsias_upper_bound"]
+
+
+@pytest.mark.parametrize("family", ["Matern32", "SquaredExponential"])
+@pytest.mark.parametrize("n,d,b", [(1500, 8, 1), (700, 3, 2)])
+def test_matvec_gradient_wrt_vector_matches_plain(dev, family, n, d, b):
+    """dp of the streaming Function (one more symmetric launch of kernel 1,
+    accurate tier) against the plain version g @ K^T, 3e-6 of max abs."""
+    rng = np.random.default_rng(5)
+    kern = tk.make_kernel(family, d, variance=1.4,
+                          lengthscales=rng.uniform(0.5, 2.0, size=d),
+                          dtype=torch.float64, device=dev)
+    X = torch.tensor(rng.normal(size=(n, d)), device=dev)
+    p = torch.tensor(rng.normal(size=(b, n)), device=dev, requires_grad=True)
+    g = torch.tensor(rng.normal(size=(b, n)), device=dev)
+    before = tmv.launch_matvec.launches
+    out = tmv.kernel_matvec(kern, X, p)
+    (dp,) = torch.autograd.grad(out, p, g)
+    assert tmv.launch_matvec.launches == before + 2
+    with torch.no_grad():
+        want = g @ kern.K(X).T
+    assert _rel(dp, want) < 3e-6
+
+
+def test_scipy_feval_on_the_card_matches_cpu(dev):
+    """One evaluation of the scipy bridge's objective (loss and flattened
+    gradient of the streaming CGLB loss, v0 trained jointly so that dp
+    runs) on the card against the plain versions on the CPU: loss to 1e-7,
+    gradient to 1e-5 of its largest entry."""
+    from cglb_tpu_torch.backend import Model
+    from cglb_tpu_torch.models import cglb as tc
+    from cglb_tpu_torch.models import sgpr as ts
+    from cglb_tpu_torch.utils import flatten as tfl
+
+    rng = np.random.default_rng(6)
+    X = rng.normal(size=(900, 4))
+    Y = np.sin(X[:, :1]) + 0.1 * rng.normal(size=(900, 1))
+    v0 = 0.05 * rng.normal(size=(1, 900))
+    out = []
+    for device in ("cpu", dev):
+        kern = tk.make_kernel("Matern32", 4, variance=1.2, lengthscales=0.9,
+                              dtype=torch.float64, device=device)
+        params = ts.SGPRParams(kern, X[:24], noise_variance=0.2,
+                               dtype=torch.float64, device=device)
+        model = Model("cglb", params,
+                      (torch.tensor(X, device=device),
+                       torch.tensor(Y, device=device)),
+                      tc.CGLBConfig(joint_optimization=True),
+                      matvec="streaming")
+        with torch.no_grad():
+            params.v0.raw.copy_(torch.tensor(v0))
+        loss, _ = model.loss_fn()(params, model.carry_in())
+        loss.backward()
+        out.append((float(loss.detach()), tfl.flatten_grads_like(params)))
+    (cl, cg), (gl, gg) = out
+    assert abs(gl - cl) <= 1e-7 * abs(cl)
+    assert np.abs(gg - cg).max() <= 1e-5 * np.abs(cg).max()
+
+
+@pytest.mark.parametrize("optimizer,flags", [("scipy4", []),
+                                             ("scipy_tol", []),
+                                             ("scipy", ["--vjoint"])])
+def test_scipy_cli_on_the_card(dev, tmp_path, monkeypatch, optimizer, flags):
+    from cglb_tpu_torch.experiments import cli
+    from cglb_tpu_torch.utils.serialization import load_json
+
+    monkeypatch.setenv("CGLB_DATA_DIR", str(tmp_path / "no_data_here"))
+    counters = (tmv.launch_matvec, tmv.launch_ls_grad, tkuf.launch_kuf)
+    for fn in counters:
+        fn.launches = 0
+    cli.main(["-l", str(tmp_path), "--device", "cuda", "--matvec",
+              "streaming", "train", "-n", "6", "-d", "synth_600x3", "-o",
+              optimizer, "cglb", "-m", "cglb", "-k", "Matern32", "-i", "cv",
+              "-M", "16"] + flags)
+    assert all(fn.launches > 0 for fn in counters)
+    res = load_json(tmp_path / "results.json")
+    assert res["opt/num_iters"] == 6 and np.isfinite(res["loss"])
     assert res["elbo"] <= res["titsias_upper_bound"]

@@ -17,6 +17,7 @@ import sys
 for name in ("jax", "click", "optax", "cglb_tpu"):
     sys.modules[name] = None
 import cglb_tpu_torch, cglb_tpu_torch.backend
+import cglb_tpu_torch.utils.flatten, cglb_tpu_torch.experiments.baselines
 from cglb_tpu_torch.experiments import cli
 cli.main(sys.argv[1:])
 assert not any(m == "jax" or m.startswith(("jax.", "cglb_tpu."))
@@ -25,17 +26,20 @@ assert not any(m == "jax" or m.startswith(("jax.", "cglb_tpu."))
 
 
 def test_port_runs_with_jax_click_optax_blocked(tmp_path):
-    """Import the package, its backend and CLI, and run a 2-step CPU
-    training with jax, click, optax and cglb_tpu unimportable."""
+    """Import the package, its backend, flatten bridge, baselines and CLI,
+    and run a 2-step CPU scipy4 training with checkpoints, with jax, click,
+    optax and cglb_tpu unimportable."""
     env = dict(os.environ, CGLB_DATA_DIR=str(tmp_path / "no_data_here"),
                PYTHONPATH=str(ROOT))
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED, "-l", str(tmp_path), "--device",
-         "cpu", "train", "-n", "2", "-d", "synth_150x2", "-o", "adam_0.01",
-         "cglb", "-m", "cglb", "-k", "Matern32", "-i", "cv", "-M", "8"],
+         "cpu", "train", "-n", "2", "-d", "synth_150x2", "-o", "scipy4",
+         "--ckpt-every", "1", "cglbnm2", "-m", "cglbnm2", "-k", "Matern32",
+         "-i", "cv", "-M", "8", "--vjoint"],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert (tmp_path / "results.json").exists()
+    assert (tmp_path / "checkpoint.json").exists()
 
 
 def test_no_jax_import_in_port_sources():
@@ -66,19 +70,28 @@ def test_wrappers_take_plain_version_only_on_cpu():
 
 
 @pytest.mark.parametrize("args,match", [
-    (["train", "-o", "scipy"], "optimizer 'scipy'"),
-    (["train", "-o", "adam_0.01", "--vzero"], "--vzero"),
+    (["-o", "lbfgs", "cglb", "-m", "cglb", "-k", "rbf", "-i", "cv", "-M",
+      "4"], "optimizer 'lbfgs'.*ROADMAP.md"),
+    (["-o", "adam_0.01", "gpr", "-m", "gpr", "-k", "rbf"],
+     "model GPRConfig.*ROADMAP.md"),
 ])
 def test_unported_options_fail_clearly(tmp_path, monkeypatch, args, match):
     from cglb_tpu_torch.experiments import cli
 
     monkeypatch.setenv("CGLB_DATA_DIR", str(tmp_path / "no_data_here"))
-    argv = (["-l", str(tmp_path), "--device", "cpu"] + args[:1]
-            + ["-n", "1", "-d", "synth_40x1"] + args[1:3]
-            + ["cglb", "-m", "cglb", "-k", "rbf", "-i", "cv", "-M", "4"]
-            + args[3:])
+    argv = (["-l", str(tmp_path), "--device", "cpu", "train", "-n", "1",
+             "-d", "synth_40x1"] + args)
     with pytest.raises(NotImplementedError, match=match):
         cli.main(argv)
+
+
+def test_gpr_metric_fails_clearly(tmp_path, monkeypatch):
+    from cglb_tpu_torch.experiments import cli
+
+    monkeypatch.setenv("CGLB_DATA_DIR", str(tmp_path / "no_data_here"))
+    with pytest.raises(NotImplementedError, match="GPRConfig.*ROADMAP.md"):
+        cli.main(["-l", str(tmp_path), "--device", "cpu", "gpr_metric", "-d",
+                  "synth_40x1", "-k", "rbf", "-p", str(tmp_path / "m.json")])
 
 
 def test_mesh_option_is_refused(tmp_path):

@@ -18,7 +18,7 @@ from cglb_tpu_torch.models import sgpr as ts
 from cglb_tpu_torch.ops import kernels as tk
 from cglb_tpu_torch.utils import inducing as tind
 from cglb_tpu_torch.utils import serialization as tser
-from cglb_tpu_torch.utils.training import from_jax_parameter_dict
+from cglb_tpu_torch.utils.flatten import assign_parameters
 
 ANCHOR = "runs/kin40k-2000-scipy4-r4/model.json"
 
@@ -60,7 +60,7 @@ def test_from_jax_parameter_dict_on_tpu_run():
     saved = tser.load_model_params(ANCHOR)
     params = ts.SGPRParams(tk.Matern32(8, dtype=torch.float64),
                            np.zeros((2048, 8)), dtype=torch.float64)
-    from_jax_parameter_dict(params, saved)
+    assign_parameters(params, saved)
     out = params.parameter_dict()
     assert list(out) == [".kernel.variance", ".kernel.lengthscales",
                          ".inducing_Z", ".noise_variance", ".mean.c"]
