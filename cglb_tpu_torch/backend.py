@@ -6,11 +6,14 @@ The device is explicit: ``Torch(device="cuda")`` raises when CUDA is absent
 (``device="cpu"`` for tests).  At N >= 8192 the CGLB loss runs on the
 streaming operator (kernels 1 and 2; ops/matvec.py), with the fp32 CG tier in
 the CG loop when max_error >= 0.5; Kuf comes from kernel 3 (ops/kuf.py) on
-every path.  Model kinds: ``cglb`` (Jensen log-det), ``cglbn2m``,
-``cglbnm2``, ``sgpr`` and ``sgprn2m``; optimizers: ``scipy``, ``scipy4``,
-``scipy_tol`` and ``adam_<lr>``, with periodic full-state checkpoints.  The
-exact-GP models and the other optimizers raise NotImplementedError naming
-their ROADMAP queue.
+every path that has inducing points.  Model kinds: ``cglb`` (Jensen
+log-det), ``cglbn2m``, ``cglbnm2``, ``sgpr``, ``sgprn2m``, the dense exact GP
+``gpr`` and the iterative one ``exactgp`` (CG, SLQ and Lanczos variances on
+kernels 1 and 2 above 4096 rows, whatever the matvec mode); optimizers:
+``scipy``, ``scipy4``, ``scipy_tol``, ``lbfgs``, ``lbfgs_native``, ``staged``
+and ``adam_<lr>``, with periodic full-state checkpoints.  On ``gpr`` and
+``exactgp`` every ``adam_<lr>`` runs the staged schedule with that learning
+rate, as the JAX package's backend does.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import torch
 from . import config as _config
 from . import configs as _cfgs
 from .models import cglb as _cglb
+from .models import gpr as _gpr
+from .models import gpr_iterative as _itgp
 from .models import sgpr as _sgpr
 from .models.cglb import CGLBConfig as _RunCfg
 from .models.gaussian import predict_log_density as _pld
@@ -39,6 +44,7 @@ __all__ = ["Model", "Torch", "resolve_device"]
 
 _CGLB_KINDS = {"cglb": "jensen", "cglbn2m": "n2m", "cglbnm2": "nm2"}
 _SGPR_KINDS = ("sgpr", "sgprn2m")
+_GPR_KINDS = ("gpr", "exactgp")
 
 
 def resolve_device(device) -> torch.device:
@@ -51,19 +57,15 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _not_ported(what: str, queue: str):
-    return NotImplementedError(
-        f"{what} is not ported to cglb_tpu_torch yet (ROADMAP.md: {queue})")
-
-
 class Model:
-    """Parameters, training data on the device, and for CGLB the CG warm
-    start ``v0`` with the last CG stats."""
+    """Parameters, training data on the device, for CGLB the CG warm start
+    ``v0`` with the last CG stats, and for the iterative exact GP the state
+    of the generator its probes come from."""
 
     # streaming matvec above this N when the matvec mode is "auto"
     STREAMING_THRESHOLD = 8192
 
-    def __init__(self, kind: str, params: _sgpr.SGPRParams,
+    def __init__(self, kind: str, params,
                  data: Tuple[torch.Tensor, torch.Tensor],
                  run_cfg: Optional[_RunCfg] = None, matvec: str = "auto"):
         self.kind = kind
@@ -81,6 +83,8 @@ class Model:
                 self.params.v0 = _Param(self.v0, trainable=True)
         self.cg_steps = 0
         self.cg_residual_error = 0.0
+        # exactgp: get_state() of the probes' generator, seeded at first use
+        self.generator_state = None
         self.last_checkpoint_extra: Dict = {}
 
     @property
@@ -98,8 +102,29 @@ class Model:
             self.matvec_mode == "auto" and n >= self.STREAMING_THRESHOLD)
 
     def loss_fn(self) -> Callable:
-        """fn(params, carry) -> (loss, carry); carry is v0 or a CGLBAux."""
+        """fn(params, carry) -> (loss, carry); carry is v0 or a CGLBAux, for
+        ``exactgp`` the state of the probes' generator.  The ``gpr`` and
+        ``exactgp`` functions also take a data slice, fn(params, carry, X,
+        Y), for the staged schedule."""
         X, Y = self.data
+        if self.kind == "gpr":
+            def fn(params, state, *data):
+                return -_gpr.log_marginal_likelihood(
+                    params, *(data or self.data)), state
+
+            return fn
+        if self.kind == "exactgp":
+            itcfg = _itgp.IterGPConfig()
+
+            def fn(params, carry, *data):
+                Xd, Yd = data or self.data
+                # the state, not the generator, is carried: evaluations
+                # from one carry draw the same probes
+                gen = _itgp.make_generator(carry, Xd.device)
+                loss, _ = _itgp.iterative_loss(params, Xd, Yd, gen, itcfg)
+                return loss, gen.get_state()
+
+            return fn
         if self.kind in _SGPR_KINDS:
             bound = _sgpr.elbo if self.kind == "sgpr" else _sgpr.elbo_n2m
 
@@ -146,9 +171,16 @@ class Model:
         return fn
 
     def carry_in(self):
+        if self.kind == "exactgp":
+            if self.generator_state is None:
+                self.generator_state = _itgp.make_generator(
+                    _config.settings.seed, self.data[0].device).get_state()
+            return self.generator_state
         return self.v0
 
     def carry_out(self, state) -> None:
+        if self.kind == "exactgp" and state is not None:
+            self.generator_state = state
         if self.kind in _CGLB_KINDS and isinstance(state, _cglb.CGLBAux):
             self.v0 = state.v
             self.cg_steps = int(state.cg_steps)
@@ -168,13 +200,25 @@ class Model:
     def upper_bound(self) -> float:
         return float(_sgpr.upper_bound(self.params, *self.data))
 
+    @torch.no_grad()
+    def lml(self) -> float:
+        """The dense log marginal likelihood (``gpr``)."""
+        return float(_gpr.log_marginal_likelihood(self.params, *self.data))
+
     def predict_f(self, Xnew, cg_tolerance: Optional[float] = 1e-3):
         return self.predict_f_batched(Xnew, cg_tolerance=cg_tolerance)
 
     def default_predict_batch(self) -> int:
-        """clamp(2^30 / (32 M), 4096, 1e5) rows (cglb_tpu/backend.py:389)."""
-        m = self.params.num_inducing
-        return max(4096, min(100_000, (1 << 30) // (32 * m)))
+        """Rows per prediction batch: clamp(2^30 / (32 M), 4096, 1e5)
+        (cglb_tpu/backend.py:389), which holds a batch's Kus temporaries to
+        about 1 GiB.  The dense GP materializes K(batch, X) instead, 8 N
+        bytes a row, and is held to the same; the iterative one streams its
+        cross products (or has N <= 4096) and takes the upper clamp."""
+        if self.kind == "exactgp":
+            return 100_000
+        row_bytes = (8 * self.data[0].shape[0] if self.kind == "gpr"
+                     else 32 * self.params.num_inducing)
+        return max(4096, min(100_000, (1 << 30) // row_bytes))
 
     @torch.no_grad()
     def predict_f_batched(self, Xnew, batch_size: Optional[int] = None,
@@ -186,7 +230,17 @@ class Model:
         X, Y = self.data
         Xnew = torch.as_tensor(Xnew, dtype=X.dtype, device=X.device)
         batch_size = batch_size or self.default_predict_batch()
-        if self.kind in _SGPR_KINDS:
+        if self.kind == "gpr":
+            cache = _gpr.predict_prepare(p, X, Y)
+
+            def batch(xs):
+                return _gpr.predict_from_cache(p, cache, X, xs)
+        elif self.kind == "exactgp":
+            cache = _itgp.predict_prepare(p, X, Y)
+
+            def batch(xs):
+                return _itgp.predict_from_cache(p, cache, X, xs)
+        elif self.kind in _SGPR_KINDS:
             cache = _sgpr.predict_prepare(p, X, Y)
 
             def batch(xs):
@@ -259,13 +313,16 @@ class Torch:
         seed = seed if seed is not None else _config.settings.seed
         kind = {_cfgs.CGLBConfig: "cglb", _cfgs.CGLBN2MConfig: "cglbn2m",
                 _cfgs.CGLBNM2Config: "cglbnm2", _cfgs.SGPRConfig: "sgpr",
-                _cfgs.SGPRN2MConfig: "sgprn2m"}.get(type(model_cfg))
-        if kind is None:
-            raise _not_ported(f"model {type(model_cfg).__name__}",
-                              "queue 1, the exact-GP models")
+                _cfgs.SGPRN2MConfig: "sgprn2m", _cfgs.GPRConfig: "gpr",
+                _cfgs.ExactGPConfig: "exactgp"}[type(model_cfg)]
         X, Y = self._tensor(data[0]), self._tensor(data[1])
         kernel = self.create_kernel(model_cfg.kernel, (X, Y))
         p = model_cfg.params((X, Y))
+        if kind in _GPR_KINDS:
+            params = _gpr.GPRParams(kernel,
+                                    noise_variance=p["noise_variance"],
+                                    output_dim=Y.shape[1], device=self.device)
+            return Model(kind, params, (X, Y), matvec=self.matvec_mode)
         Z = p["inducing_variable"](kernel, seed=seed)
         params = _sgpr.SGPRParams(kernel, Z, noise_variance=p["noise_variance"],
                                   output_dim=Y.shape[1], device=self.device)
@@ -369,14 +426,33 @@ class Torch:
                 on_level=lambda m: live_extra.update(max_error=m),
                 tol_resume=(resume_extra or {}).get("max_error"),
                 **scipy_args)
+        elif optimizer == "lbfgs":
+            res = _training.lbfgs_minimize(
+                loss_fn, model.params, carry, num_steps, logger,
+                feval_stats_fn=stats_fn, sync_fn=sync_fn)
+        elif optimizer == "lbfgs_native":
+            res = _training.native_lbfgs_minimize(
+                loss_fn, model.params, carry, num_steps, logger,
+                feval_stats_fn=stats_fn, sync_fn=sync_fn)
+        elif optimizer == "staged" and model.kind in _GPR_KINDS:
+            # the exact-GP baseline's schedule, at its default learning rate
+            res = _training.staged_gpr_optimize(
+                loss_fn, model.params, *model.data, num_steps, logger,
+                sync_fn=sync_fn)
         elif optimizer.startswith("adam"):
             lr = float(optimizer.split("_", maxsplit=1)[1])
-            res = _training.adam_minimize(loss_fn, model.params, carry,
-                                          num_steps, lr, logger,
-                                          sync_fn=sync_fn)
+            if model.kind in _GPR_KINDS:
+                # as the JAX package's backend: every adam_<lr> on an exact
+                # GP runs the staged schedule with that learning rate
+                res = _training.staged_gpr_optimize(
+                    loss_fn, model.params, *model.data, num_steps, logger,
+                    adam_lr=lr, sync_fn=sync_fn)
+            else:
+                res = _training.adam_minimize(loss_fn, model.params, carry,
+                                              num_steps, lr, logger,
+                                              sync_fn=sync_fn)
         else:
-            raise _not_ported(f"optimizer {optimizer!r}",
-                              "queue 1, the L-BFGS and staged optimizers")
+            raise NotImplementedError(optimizer)
         model.carry_out(res.state)
         return res
 
@@ -398,7 +474,15 @@ class Torch:
 
         rmse_lpd = _metrics.rmse_and_lpd_fn(err_and_logdensity)
 
-        if model.kind in _SGPR_KINDS:
+        if model.kind == "gpr":
+            def core():
+                lml = model.lml()
+                return {"lml": lml, "loss": -lml}
+        elif model.kind == "exactgp":
+            def core():
+                loss = model.loss_value()
+                return {"lml": -loss, "loss": loss}
+        elif model.kind in _SGPR_KINDS:
             def core():
                 # sgprn2m reports its own bound as ``elbo``
                 loss = model.loss_value()

@@ -8,12 +8,17 @@ Same grammar and options as ``cglb_tpu/experiments/cli.py:241-316``:
 
 and the same artifacts in LOGDIR (``results.json``, ``logs.json``,
 ``model.json``, ``checkpoint.json`` with ``--ckpt-every``) with the same keys.
-``metric ... <leaf> -p model.json`` writes ``metric.npy`` and ``baseline
-mean|linear`` a ``results.json``, as the JAX CLI does.  ``--device`` (default
-``cuda``) is new; ``--common-dtype mixed`` is an alias of float64.  What is
-not ported yet parses and then fails with an error naming its ROADMAP queue:
-``-o lbfgs|lbfgs_native|staged``, the ``gpr`` leaf and ``gpr_metric``,
-``--mesh`` and ``--dispatch-bound``.
+Leaves: ``cglb``, ``cglbn2m``, ``cglbnm2``, ``sgpr``, ``sgprn2m`` and ``gpr -m
+gpr|exactgp -k KERNEL [-p model.json]`` (the dense and the iterative exact GP);
+optimizers: ``scipy``, ``scipy4``, ``scipy_tol``, ``lbfgs``, ``lbfgs_native``,
+``staged`` and ``adam_<lr>`` (on ``gpr`` every ``adam_<lr>`` runs the staged
+schedule with that learning rate).  ``metric ... <leaf> -p model.json`` writes
+``metric.npy``, ``gpr_metric -d DS -k KERNEL -p model.json`` evaluates any
+saved model as a dense GP and writes ``gpr_metric.npy`` beside that file,
+and ``baseline mean|linear`` a ``results.json``, as the JAX CLI does.
+``--device`` (default ``cuda``) is new; ``--common-dtype mixed`` is an alias of
+float64.  What is not ported yet parses and then fails naming its ROADMAP
+queue: ``--mesh`` and ``--dispatch-bound``.
 """
 
 from __future__ import annotations

@@ -16,16 +16,15 @@ work around fp64 emulation on the TPU and are not ported; the backend treats
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import NamedTuple, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
 from .. import config as _config
 from ..ops import chol as _chol
 from ..ops.kuf import kuf as _kuf
-from ..transforms import Param
+from ..transforms import Param, ParamModule
 from .gaussian import ConstantMean, mean_apply
 
 __all__ = ["SGPRParams", "CommonTerms", "common_terms", "elbo", "elbo_n2m",
@@ -37,9 +36,8 @@ def _solve_lower(L, B):
     return torch.linalg.solve_triangular(L, B, upper=False)
 
 
-class SGPRParams(nn.Module):
-    """Kernel, inducing points, noise variance and constant mean.  Its
-    ``Param``s carry the JAX package's names (``parameter_dict``)."""
+class SGPRParams(ParamModule):
+    """Kernel, inducing points, noise variance and constant mean."""
 
     def __init__(self, kernel: nn.Module, Z, noise_variance: float = 1.0,
                  output_dim: int = 1, dtype: torch.dtype = None,
@@ -63,17 +61,6 @@ class SGPRParams(nn.Module):
     @property
     def num_inducing(self) -> int:
         return self.inducing_Z.raw.shape[0]
-
-    def named_params(self):
-        """(dotted JAX-style name, Param) pairs in registration order."""
-        return [("." + name, m) for name, m in self.named_modules()
-                if isinstance(m, Param)]
-
-    def parameter_dict(self) -> Dict[str, np.ndarray]:
-        """Constrained values keyed ``.kernel.variance``, ... (model.json)."""
-        with torch.no_grad():
-            return {name: p.value.detach().cpu().numpy()
-                    for name, p in self.named_params()}
 
 
 class CommonTerms(NamedTuple):

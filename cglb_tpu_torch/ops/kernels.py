@@ -93,9 +93,10 @@ def _sq_dist_self(X, lengthscales):
     Xs = X / lengthscales
     xn = torch.sum(Xs * Xs, dim=-1)
     d2 = torch.clamp(xn[:, None] + xn[None, :] - 2.0 * (Xs @ Xs.T), min=0.0)
-    # exact zeros on the diagonal (guards Matern's sqrt grad at r=0)
-    eye = torch.eye(X.shape[0], dtype=X.dtype, device=X.device)
-    return d2 * (1.0 - eye)
+    # exact zeros on the diagonal (guards Matern's sqrt grad at r=0), written
+    # in place: at N = 26800 every N x N temporary is 5.75 GB
+    d2.diagonal().zero_()
+    return d2
 
 
 def K(kernel: _Stationary, X, Z=None):

@@ -11,6 +11,9 @@ work on the card:
 - kernel 2, :func:`launch_ls_grad`: the lengthscale cotangent,
   sum_ij (sum_b p_bi g_bj) rho'(d2)_ij (xs_i - xs_j)_d^2, reduced in fp64.
 
+A batch wider than ``MAX_BATCH`` rows (the instantiated widths) goes out in
+groups of at most that many, one launch each: kernel 1's groups are
+concatenated, kernel 2's partial cotangents added in fp64 in group order.
 Each launch splits the rows into segments (:func:`plan_segments`, from the
 card's SM count and the kernel's resident blocks per SM) and sums the
 segments' partials in a fixed order (:func:`reduce_segments`), so that the
@@ -48,6 +51,8 @@ __all__ = ["Prepared", "kernel_matvec", "kernel_cross_matvec",
            "ls_grad_unit_plain", "launch_matvec", "launch_ls_grad",
            "Geometry", "plan_segments", "reduce_segments", "MAX_BATCH"]
 
+# rows of p one launch takes (the widest instantiation); wider batches are
+# launched in groups
 MAX_BATCH = 8
 _FAMILY_CODE = {"rbf": 0, "mat32": 1}
 # columns per plain-version chunk: bounds its [Ni, chunk] temporaries
@@ -68,10 +73,18 @@ def _dpad(d: int) -> int:
 
 
 def _bpad(b: int) -> int:
+    """Batch width one launch is instantiated for."""
     if not 1 <= b <= MAX_BATCH:
-        raise ValueError(f"batch {b} outside 1..{MAX_BATCH} of the streaming "
-                         "kernels")
+        raise ValueError(f"batch {b} outside 1..{MAX_BATCH} of one launch of "
+                         "the streaming kernels")
     return 1 << (b - 1).bit_length()
+
+
+def _groups(b: int):
+    """Row ranges of at most MAX_BATCH rows covering a batch of b >= 1."""
+    if b < 1:
+        raise ValueError(f"batch {b} < 1 for the streaming kernels")
+    return [(b0, min(b0 + MAX_BATCH, b)) for b0 in range(0, b, MAX_BATCH)]
 
 
 class Prepared:
@@ -259,10 +272,20 @@ def launch_matvec(rows: Prepared, cols: Prepared, p: torch.Tensor,
     """Kernel 1 on the card: [B, Nc] in fp64 (accurate) or fp32 (CG), from
     per-segment partials summed by :func:`reduce_segments`.  When rows and
     cols are the same prepared set the symmetric path takes each pair once
-    and adds the per-column-block row sums."""
+    and adds the per-column-block row sums.  B > MAX_BATCH: one launch per
+    group of rows, concatenated."""
+    if p.ndim != 2 or p.shape[1] != rows.n:
+        raise ValueError(f"p of shape {tuple(p.shape)} for {rows.n} rows")
+    groups = _groups(p.shape[0])
+    if len(groups) == 1:
+        return _launch_matvec_group(rows, cols, p, accurate)
+    return torch.cat([_launch_matvec_group(rows, cols, p[b0:b1], accurate)
+                      for b0, b1 in groups], dim=0)
+
+
+def _launch_matvec_group(rows: Prepared, cols: Prepared, p: torch.Tensor,
+                         accurate: bool) -> torch.Tensor:
     xr, xc = rows.packed(), cols.packed()
-    if p.shape[1] != rows.n:
-        raise ValueError(f"p has {p.shape[1]} columns, rows has {rows.n}")
     symmetric = rows is cols
     B = p.shape[0]
     bp = _bpad(B)
@@ -301,11 +324,22 @@ def launch_ls_grad(rows: Prepared, cols: Prepared, p: torch.Tensor,
                    g: torch.Tensor) -> torch.Tensor:
     """Kernel 2 on the card: [D] fp64, summed over its per-block partials
     by a deterministic torch.sum (no atomics); symmetric (each pair once,
-    m_ij + m_ji) when rows and cols are the same prepared set."""
+    m_ij + m_ji) when rows and cols are the same prepared set.  B >
+    MAX_BATCH: one launch per group of rows, added in fp64 in group order."""
+    if p.ndim != 2 or g.shape != (p.shape[0], cols.n) \
+            or p.shape[1] != rows.n:
+        raise ValueError(f"shapes p {tuple(p.shape)}, g {tuple(g.shape)}")
+    acc = None
+    for b0, b1 in _groups(p.shape[0]):
+        part = _launch_ls_grad_group(rows, cols, p[b0:b1], g[b0:b1])
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def _launch_ls_grad_group(rows: Prepared, cols: Prepared, p: torch.Tensor,
+                          g: torch.Tensor) -> torch.Tensor:
     xr, xc = rows.packed(), cols.packed()
     B = p.shape[0]
-    if g.shape != (B, cols.n) or p.shape[1] != rows.n:
-        raise ValueError(f"shapes p {tuple(p.shape)}, g {tuple(g.shape)}")
     symmetric = rows is cols
     bp = _bpad(B)
     ldp = -(-rows.n // 4) * 4

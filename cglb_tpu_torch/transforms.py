@@ -14,10 +14,14 @@ above ``threshold=20``, which changes values and gradients there.
 
 from __future__ import annotations
 
+from typing import Dict
+
+import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["Identity", "Positive", "Param", "softplus", "softplus_inverse"]
+__all__ = ["Identity", "Positive", "Param", "ParamModule", "softplus",
+           "softplus_inverse"]
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -87,3 +91,19 @@ class Param(nn.Module):
     def positive(value, lower: float, trainable: bool = True, dtype=None,
                  device=None) -> "Param":
         return Param(value, Positive(lower), trainable, dtype, device)
+
+
+class ParamModule(nn.Module):
+    """A model's parameter module: its ``Param``s carry the JAX package's
+    dotted names."""
+
+    def named_params(self):
+        """(dotted JAX-style name, Param) pairs in registration order."""
+        return [("." + name, m) for name, m in self.named_modules()
+                if isinstance(m, Param)]
+
+    def parameter_dict(self) -> Dict[str, np.ndarray]:
+        """Constrained values keyed ``.kernel.variance``, ... (model.json)."""
+        with torch.no_grad():
+            return {name: p.value.detach().cpu().numpy()
+                    for name, p in self.named_params()}

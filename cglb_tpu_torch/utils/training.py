@@ -1,5 +1,6 @@
 """Training loops: the scipy L-BFGS-B bridge, its adaptive CG-tolerance
-schedule, and Adam.
+schedule, Adam, L-BFGS on the device, the C++ L-BFGS and the staged exact-GP
+schedule.
 
 Counterpart of ``cglb_tpu/utils/training.py``:
 
@@ -11,15 +12,21 @@ Counterpart of ``cglb_tpu/utils/training.py``:
 - ``scipy_tol_minimize`` (:227-348): that bridge re-entered at CG tolerances
   tightened 10x each time scipy converges with budget left;
 - ``adam_minimize`` (:351-392) on ``torch.optim.Adam``, whose defaults (betas
-  0.9/0.999, eps 1e-8) equal optax's ``adam``.
+  0.9/0.999, eps 1e-8) equal optax's ``adam``;
+- ``lbfgs_minimize`` (:540-591, optax L-BFGS with a zoom line search there):
+  the two-loop recursion with memory 15 and a strong-Wolfe line search over
+  the flattened trainable vector, which stays on the device;
+- ``native_lbfgs_minimize`` (:432-494): the C++ L-BFGS of ``native/lbfgs.cpp``
+  (utils/native.py) in the host role scipy has above;
+- ``staged_gpr_optimize`` (:497-537): the exact-GP baseline's schedule.
 
 Every optimizer acts on the raw (unconstrained) values of the model's
 trainable ``Param``s and updates the live module in place; the JAX package
 builds a new pytree per evaluation instead.  The CG warm start is threaded
 through every path as carry state and is updated on every evaluation,
-line-search probes included.  The on-device L-BFGS, the C++ L-BFGS, the
-staged exact-GP schedule and the dispatch-bounded Adam are not ported yet
-(ROADMAP.md).
+line-search probes included; ``lbfgs_minimize`` alone holds it fixed inside
+one iteration's line search, as the JAX function does.  The dispatch-bounded
+Adam is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -34,7 +41,8 @@ from . import flatten as _fl
 from .logging import Logger
 
 __all__ = ["OptimizeResult", "scipy_minimize", "scipy_tol_minimize",
-           "adam_minimize"]
+           "adam_minimize", "lbfgs_minimize", "native_lbfgs_minimize",
+           "staged_gpr_optimize"]
 
 # loss_fn(params, carry, *loss_args) -> (loss tensor, new carry)
 LossFn = Callable[..., Any]
@@ -302,10 +310,11 @@ def scipy_tol_minimize(
 def adam_minimize(loss_fn: LossFn, params: torch.nn.Module, state,
                   num_steps: int, learning_rate: float = 0.01,
                   logger: Optional[Logger] = None,
-                  sync_fn: Callable[[Any, Any], None] = None
-                  ) -> OptimizeResult:
+                  sync_fn: Callable[[Any, Any], None] = None,
+                  loss_args: tuple = ()) -> OptimizeResult:
     """``num_steps`` Adam steps on the trainable raw parameters of
-    ``params`` (updated in place)."""
+    ``params`` (updated in place).  loss_args: extra positional arguments
+    of ``loss_fn`` (the data slice of the staged schedule)."""
     trainable = [p for p in params.parameters() if p.requires_grad]
     opt = torch.optim.Adam(trainable, lr=learning_rate, betas=(0.9, 0.999),
                            eps=1e-8)
@@ -315,7 +324,7 @@ def adam_minimize(loss_fn: LossFn, params: torch.nn.Module, state,
     loss = torch.tensor(np.inf)
     for i in range(num_steps):
         opt.zero_grad(set_to_none=True)
-        loss, state = loss_fn(params, state)
+        loss, state = loss_fn(params, state, *loss_args)
         loss.backward()
         opt.step()
         if logger is not None:
@@ -324,3 +333,255 @@ def adam_minimize(loss_fn: LossFn, params: torch.nn.Module, state,
             logger(i)
     return OptimizeResult(params=params, state=state, num_iters=num_steps,
                           final_loss=float(loss.detach()))
+
+
+def _two_loop(g: torch.Tensor, pairs) -> torch.Tensor:
+    """-H g by the L-BFGS two-loop recursion over ``pairs`` of (s, y, 1 /
+    y.s), oldest first, with H0 = (s.y / y.y) I from the newest pair."""
+    q = g.neg()
+    alphas = []
+    for sv, yv, rho in reversed(pairs):
+        a = rho * torch.dot(sv, q)
+        alphas.append(a)
+        q = q - a * yv
+    sv, yv, rho = pairs[-1]
+    q = q / (rho * torch.dot(yv, yv))
+    for (sv, yv, rho), a in zip(pairs, reversed(alphas)):
+        q = q + (a - rho * torch.dot(yv, q)) * sv
+    return q
+
+
+def _cubic_min(t0, f0, g0, t1, f1, g1) -> float:
+    """Minimizer of the cubic through (t0, f0, g0) and (t1, f1, g1), kept
+    inside the middle 80 % of the interval; its midpoint if there is no
+    finite one."""
+    lo, hi = min(t0, t1), max(t0, t1)
+    t = 0.5 * (lo + hi)
+    if all(np.isfinite(v) for v in (f0, g0, f1, g1)):
+        d1 = g0 + g1 - 3.0 * (f0 - f1) / (t0 - t1)
+        sq = d1 * d1 - g0 * g1
+        if sq >= 0.0:
+            d2 = np.sqrt(sq) * (1.0 if t1 >= t0 else -1.0)
+            den = g1 - g0 + 2.0 * d2
+            if den != 0.0:
+                cand = t1 - (t1 - t0) * (g1 + d2 - d1) / den
+                if np.isfinite(cand):
+                    t = cand
+    pad = 0.1 * (hi - lo)
+    return float(min(max(t, lo + pad), hi - pad))
+
+
+def _strong_wolfe(phi, f0: float, g0: float, t: float, c1: float = 1e-4,
+                  c2: float = 0.9, max_evals: int = 25) -> float:
+    """A step length along a descent direction (g0 < 0) that meets the
+    strong Wolfe conditions: bracketing, then zoom by safeguarded cubic
+    interpolation (Nocedal & Wright, algorithms 3.5 and 3.6).  ``phi(t)``
+    returns (f, slope) as floats; a non-finite f counts as too long a step.
+    Out of evaluations, the lowest point found with sufficient decrease is
+    returned, or 0.0 when there is none."""
+    best = (0.0, f0)
+
+    def armijo(tv, fv):
+        return np.isfinite(fv) and fv <= f0 + c1 * tv * g0
+
+    lo = (0.0, f0, g0)
+    hi = None
+    evals = 0
+    while evals < max_evals:
+        f, g = phi(t)
+        evals += 1
+        if not armijo(t, f) or (evals > 1 and f >= lo[1]):
+            hi = (t, f, g)
+            break
+        if f < best[1]:
+            best = (t, f)
+        if abs(g) <= -c2 * g0:
+            return t
+        if g >= 0.0:
+            lo, hi = (t, f, g), lo
+            break
+        lo = (t, f, g)
+        t = 2.0 * t
+    while hi is not None and evals < max_evals:
+        if abs(hi[0] - lo[0]) <= 1e-12 * max(abs(hi[0]), abs(lo[0])):
+            break
+        t = _cubic_min(*lo, *hi)
+        f, g = phi(t)
+        evals += 1
+        if not armijo(t, f) or f >= lo[1]:
+            hi = (t, f, g)
+            continue
+        if f < best[1]:
+            best = (t, f)
+        if abs(g) <= -c2 * g0:
+            return t
+        if g * (hi[0] - lo[0]) >= 0.0:
+            hi = lo
+        lo = (t, f, g)
+    return best[0]
+
+
+def lbfgs_minimize(loss_fn: LossFn, params: torch.nn.Module, state,
+                   num_steps: int, logger: Optional[Logger] = None,
+                   memory_size: int = 15,
+                   feval_stats_fn: Callable[[Any], dict] = None,
+                   sync_fn: Callable[[Any, Any], None] = None,
+                   loss_args: tuple = ()) -> OptimizeResult:
+    """L-BFGS (two-loop recursion, ``memory_size`` pairs) with a
+    strong-Wolfe line search over the flattened trainable raws, which stay
+    on the device of ``params``; the host reads the loss and the slope of
+    each evaluation.
+
+    Each step evaluates the loss and gradient once at the current iterate
+    with the current carry and takes its new carry from that evaluation;
+    the line search then re-evaluates at trial points with the carry the
+    step began with (a fixed warm start, or the same probes), so that it
+    searches one deterministic function.  One logged iteration per step; a
+    non-finite loss ends the run.  ``final_loss`` is the last step's loss at
+    its start, as in the JAX function.  A curvature pair enters the memory
+    only with y.s > 0; a direction that is not a descent direction drops
+    the memory; without memory the first trial step is min(1, 1 / |g|_1)
+    along -g.
+    """
+    raws = [p for p in params.parameters() if p.requires_grad]
+    to_vector = torch.nn.utils.parameters_to_vector
+    write = torch.nn.utils.vector_to_parameters
+
+    def evaluate(x, carry):
+        with torch.no_grad():
+            write(x, raws)
+        params.zero_grad(set_to_none=True)
+        loss, new_carry = loss_fn(params, carry, *loss_args)
+        if bool(torch.isfinite(loss.detach())):
+            loss.backward()
+        grads = [r.grad if r.grad is not None else torch.zeros_like(r)
+                 for r in raws]
+        return loss.detach(), to_vector(grads), new_carry
+
+    if logger is not None:
+        logger.timer.reset()
+        logger.timer.start()
+    pairs = []
+    x_prev = g_prev = None
+    loss_f = np.inf
+    x = to_vector(raws).detach().clone()
+    for i in range(num_steps):
+        carry = state
+        loss, g, state = evaluate(x, carry)
+        loss_f = float(loss)
+        if np.isfinite(loss_f):
+            if x_prev is not None:
+                sv, yv = x - x_prev, g - g_prev
+                ys = float(torch.dot(sv, yv))
+                if ys > 1e-10 * float(torch.dot(yv, yv)):
+                    pairs = (pairs + [(sv, yv, 1.0 / ys)])[-memory_size:]
+            d = _two_loop(g, pairs) if pairs else g.neg()
+            slope = float(torch.dot(g, d))
+            if pairs and not slope < 0.0:
+                pairs, d = [], g.neg()
+                slope = float(torch.dot(g, d))
+            x_prev, g_prev = x, g
+
+            def phi(t):
+                f, gt, _ = evaluate(x + t * d, carry)
+                return float(f), float(torch.dot(gt, d))
+
+            if slope < 0.0:
+                t0 = 1.0 if pairs else min(1.0, 1.0 / float(g.abs().sum()))
+                x = x + _strong_wolfe(phi, loss_f, slope, t0) * d
+            with torch.no_grad():
+                write(x, raws)
+        if logger is not None:
+            if sync_fn is not None:
+                sync_fn(params, state)
+            if feval_stats_fn is not None:
+                logger.log_for_feval(**feval_stats_fn(state))
+            logger(i)
+        if not np.isfinite(loss_f):
+            break
+    params.zero_grad(set_to_none=True)
+    return OptimizeResult(params=params, state=state, num_iters=num_steps,
+                          final_loss=loss_f)
+
+
+def native_lbfgs_minimize(loss_fn: LossFn, params: torch.nn.Module, state,
+                          num_steps: int, logger: Optional[Logger] = None,
+                          history: int = 15,
+                          feval_stats_fn: Callable[[Any], dict] = None,
+                          sync_fn: Callable[[Any, Any], None] = None,
+                          loss_args: tuple = ()) -> OptimizeResult:
+    """The C++ L-BFGS (native/lbfgs.cpp, strong-Wolfe line search) in the
+    host role of scipy's L-BFGS-B: the device computes the loss
+    and gradient, the host the O(n * history) update.  Raises when the
+    native library cannot be built or loaded.  The carry is updated on every
+    evaluation; at most 12 evaluations per step on average."""
+    from .native import NativeLBFGS
+
+    unflatten = _fl.make_unflatten(params)
+    x = _fl.flatten_trainable(params)
+    opt = NativeLBFGS(len(x), history=history)
+    holder = {"state": state}
+
+    def evaluate(xv):
+        unflatten(xv)
+        params.zero_grad(set_to_none=True)
+        loss, holder["state"] = loss_fn(params, holder["state"], *loss_args)
+        if logger is not None and feval_stats_fn is not None:
+            logger.log_for_feval(**feval_stats_fn(holder["state"]))
+        loss.backward()
+        return float(loss.detach()), _fl.flatten_grads_like(params)
+
+    if logger is not None:
+        logger.timer.reset()
+        logger.timer.start()
+
+    iters = fevals = 0
+    max_fevals = max(num_steps * 12, num_steps + 10)
+    try:
+        while iters < num_steps and fevals < max_fevals:
+            f, g = evaluate(x)
+            fevals += 1
+            status, x = opt.step(x, f, g)
+            if status == NativeLBFGS.ACCEPTED:
+                # the module holds the accepted point: the last one evaluated
+                iters += 1
+                if sync_fn is not None:
+                    sync_fn(params, holder["state"])
+                if logger is not None:
+                    logger(iters)
+            elif status in (NativeLBFGS.CONVERGED, NativeLBFGS.FAIL):
+                break
+        unflatten(opt.best_x if iters > 0 else x)
+    finally:
+        opt.close()
+    params.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        loss, holder["state"] = loss_fn(params, holder["state"], *loss_args)
+    return OptimizeResult(params=params, state=holder["state"],
+                          num_iters=iters, final_loss=float(loss))
+
+
+def staged_gpr_optimize(loss_fn: LossFn, params: torch.nn.Module, X, Y,
+                        num_steps: int, logger: Optional[Logger] = None,
+                        subset_size: int = 10_000,
+                        warmup_lbfgs_iters: int = 10,
+                        warmup_adam_iters: int = 10, adam_lr: float = 0.1,
+                        sync_fn: Callable[[Any, Any], None] = None
+                        ) -> OptimizeResult:
+    """The exact-GP baseline's training schedule: L-BFGS on the first
+    ``subset_size`` rows at most, a few Adam steps on that subset, then
+    ``num_steps`` Adam steps on all rows (logged).
+
+    ``loss_fn(params, carry, X, Y)`` takes the data slice of the phase; each
+    phase starts from a fresh carry (None)."""
+    ns = min(X.shape[0], subset_size)
+    sub_data = (X[:ns], Y[:ns])
+    if logger is not None:
+        logger.timer.reset()
+        logger.timer.start()
+    lbfgs_minimize(loss_fn, params, None, warmup_lbfgs_iters,
+                   loss_args=sub_data)
+    adam_minimize(loss_fn, params, None, warmup_adam_iters, adam_lr,
+                  loss_args=sub_data)
+    return adam_minimize(loss_fn, params, None, num_steps, adam_lr, logger,
+                         sync_fn=sync_fn, loss_args=(X, Y))

@@ -2,8 +2,9 @@
 small shapes, including the padded widths (D > 8, B not a power of two),
 rectangular matvecs and the symmetric path (one prepared point set),
 bitwise-equal repeat launches, kernel 1's gradient with respect to its
-vector, one evaluation of the scipy bridge against the CPU, and short CLI
-runs that must launch all three.
+vector, one evaluation of the scipy bridge against the CPU, short CLI runs
+that must launch all three, the grouped launches above 8 rows, and the
+iterative exact GP with the L-BFGS optimizers.
 
 Marked ``cuda``; skipped without a card.  This file imports neither jax nor
 cglb_tpu, so it runs where they are absent:
@@ -242,3 +243,107 @@ def test_scipy_cli_on_the_card(dev, tmp_path, monkeypatch, optimizer, flags):
     res = load_json(tmp_path / "results.json")
     assert res["opt/num_iters"] == 6 and np.isfinite(res["loss"])
     assert res["elbo"] <= res["titsias_upper_bound"]
+
+
+@pytest.mark.parametrize("family", ["mat32", "rbf"])
+@pytest.mark.parametrize("nr,nc,d,b", [(1000, 0, 8, 10), (700, 0, 3, 64),
+                                       (900, 400, 8, 64), (300, 1100, 9, 19)])
+def test_grouped_launches_match_plain_and_repeat(dev, family, nr, nc, d, b):
+    """Batches above one launch's 8 rows go out in groups (10 = 8 + 2, 19 =
+    8 + 8 + 3, 64 = 8 x 8): kernel 1 concatenated, kernel 2 added in fp64,
+    both within the single-launch bounds of the plain versions, one count a
+    group, and bitwise equal when repeated; nc = 0 takes the symmetric
+    path."""
+    rng = np.random.default_rng(7)
+    ls = torch.tensor(rng.uniform(0.5, 2.0, size=d), device=dev)
+    rows = tmv.Prepared(torch.tensor(rng.normal(size=(nr, d)), device=dev),
+                        ls, family)
+    cols = rows if nc == 0 else tmv.Prepared(
+        torch.tensor(rng.normal(size=(nc, d)), device=dev), ls, family)
+    p = torch.tensor(rng.normal(size=(b, nr)), device=dev)
+    g = torch.tensor(rng.normal(size=(b, cols.n)), device=dev)
+    groups = -(-b // tmv.MAX_BATCH)
+    before = tmv.launch_matvec.launches, tmv.launch_ls_grad.launches
+    acc = tmv.launch_matvec(rows, cols, p, True)
+    cg = tmv.launch_matvec(rows, cols, p, False)
+    ls_grad = tmv.launch_ls_grad(rows, cols, p, g)
+    assert tmv.launch_matvec.launches == before[0] + 2 * groups
+    assert tmv.launch_ls_grad.launches == before[1] + groups
+    want = tmv.matvec_unit_plain(rows.xg, cols.xg, p, family)
+    assert acc.shape == (b, cols.n) and acc.dtype == torch.float64
+    assert _rel(acc, want) < 3e-6 and _rel(cg, want) < 2e-3
+    assert _rel(ls_grad, tmv.ls_grad_unit_plain(rows.xg, cols.xg, p, g,
+                                                family)) < 1e-5
+    assert torch.equal(acc, tmv.launch_matvec(rows, cols, p, True))
+    assert torch.equal(ls_grad, tmv.launch_ls_grad(rows, cols, p, g))
+    # a group equals the single launch of its rows
+    assert torch.equal(acc[8:16] if b >= 16 else acc[8:],
+                       tmv.launch_matvec(rows, cols, p[8:16], True))
+
+
+def test_iterative_lml_on_the_card_matches_cpu(dev):
+    """The streaming branch (N > 4096) of the iterative exact GP with 10
+    shared probes: value and gradients on the card (kernels 1 and 2 in
+    groups of 8 + 2, no dp launch) against the plain versions on the CPU:
+    the value to 1e-6, the gradients to 1e-3 of their scale (the kernels
+    take the solves' vectors in fp32, and 8 CG steps carry that into alpha
+    and W, which the surrogate gradients are quadratic in)."""
+    from cglb_tpu_torch.models import gpr as tg
+    from cglb_tpu_torch.models import gpr_iterative as tit
+
+    rng = np.random.default_rng(8)
+    X = rng.normal(size=(4300, 3))
+    Y = np.sin(X[:, :1]) + 0.1 * rng.normal(size=(4300, 1))
+    Z = rng.choice([-1.0, 1.0], size=(10, 4300))
+    cfg = tit.IterGPConfig(lanczos_steps=6, max_cg_iters=8)
+    out = []
+    for device in ("cpu", dev):
+        kern = tk.make_kernel("Matern32", 3, variance=1.2, lengthscales=0.9,
+                              dtype=torch.float64, device=device)
+        params = tg.GPRParams(kern, noise_variance=0.5, dtype=torch.float64,
+                              device=device)
+        k1, k2 = tmv.launch_matvec.launches, tmv.launch_ls_grad.launches
+        lml, aux = tit.iterative_lml(
+            params, torch.tensor(X, device=device),
+            torch.tensor(Y, device=device), cfg=cfg,
+            probes=torch.tensor(Z, device=device))
+        lml.backward()
+        out.append((float(lml.detach()), aux,
+                    [p.raw.grad.cpu() for _, p in params.named_params()]))
+    k1 = tmv.launch_matvec.launches - k1
+    k2 = tmv.launch_ls_grad.launches - k2
+    (cl, caux, cgrads), (gl, gaux, ggrads) = out
+    assert (gaux.cg_steps, gaux.probe_cg_steps) == (8, 8)
+    # CG on err: init + 8 steps; on Z: 2 groups x (init + 8); Lanczos 2 x 6;
+    # surrogates 1 + 2; the backward launches kernel 2 only, 1 + 2 groups
+    assert k1 == 9 + 2 * 9 + 2 * 6 + 3 and k2 == 3
+    assert abs(gl - cl) <= 1e-6 * abs(cl)
+    for cpu, gpu in zip(cgrads, ggrads):
+        assert _rel(gpu, cpu) < 1e-3
+
+
+@pytest.mark.parametrize("optimizer,leaf", [
+    ("staged", ["gpr", "-m", "exactgp", "-k", "Matern32"]),
+    ("adam_0.01", ["gpr", "-m", "gpr", "-k", "Matern32"]),
+    ("lbfgs", ["cglb", "-m", "cglb", "-k", "Matern32", "-i", "cv", "-M",
+               "16"]),
+    ("lbfgs_native", ["cglb", "-m", "cglb", "-k", "Matern32", "-i", "cv",
+                      "-M", "16"]),
+])
+def test_exact_gp_and_lbfgs_cli_on_the_card(dev, tmp_path, monkeypatch,
+                                            optimizer, leaf):
+    from cglb_tpu_torch.experiments import cli
+    from cglb_tpu_torch.models import gpr_iterative as tit
+    from cglb_tpu_torch.utils.serialization import load_json
+
+    monkeypatch.setenv("CGLB_DATA_DIR", str(tmp_path / "no_data_here"))
+    monkeypatch.setattr(tit, "DENSE_LIMIT", 256)  # stream at N = 402
+    tmv.launch_matvec.launches = tmv.launch_ls_grad.launches = 0
+    cli.main(["-l", str(tmp_path), "--device", "cuda", "--matvec",
+              "streaming", "train", "-n", "3", "-d", "synth_600x3", "-o",
+              optimizer] + leaf)
+    res = load_json(tmp_path / "results.json")
+    assert all(np.isfinite(v) for v in res.values() if isinstance(v, float))
+    streamed = leaf[2] != "gpr"  # the dense GP launches no kernel
+    assert (tmv.launch_matvec.launches > 0) == streamed
+    assert (tmv.launch_ls_grad.launches > 0) == streamed

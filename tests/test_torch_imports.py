@@ -1,6 +1,9 @@
 """PyTorch port: it stands without jax, click, optax and cglb_tpu; its
-device and unported options fail clearly."""
+device and unported options fail clearly, and the leaves and optimizers of
+the exact-GP arm run from the CLI."""
 
+import json
+import math
 import os
 import re
 import subprocess
@@ -19,7 +22,11 @@ for name in ("jax", "click", "optax", "cglb_tpu"):
 import cglb_tpu_torch, cglb_tpu_torch.backend
 import cglb_tpu_torch.utils.flatten, cglb_tpu_torch.experiments.baselines
 from cglb_tpu_torch.experiments import cli
-cli.main(sys.argv[1:])
+argv = sys.argv[1:]
+cli.main(argv)
+cli.main(argv[:argv.index("train")] + [
+    "train", "-n", "2", "-d", "synth_150x2", "-o", "adam_0.01", "gpr", "-m",
+    "exactgp", "-k", "Matern32"])
 assert not any(m == "jax" or m.startswith(("jax.", "cglb_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 """
@@ -27,8 +34,9 @@ assert not any(m == "jax" or m.startswith(("jax.", "cglb_tpu."))
 
 def test_port_runs_with_jax_click_optax_blocked(tmp_path):
     """Import the package, its backend, flatten bridge, baselines and CLI,
-    and run a 2-step CPU scipy4 training with checkpoints, with jax, click,
-    optax and cglb_tpu unimportable."""
+    and run a 2-step CPU scipy4 training with checkpoints and then a staged
+    ``gpr -m exactgp`` run, with jax, click, optax and cglb_tpu
+    unimportable."""
     env = dict(os.environ, CGLB_DATA_DIR=str(tmp_path / "no_data_here"),
                PYTHONPATH=str(ROOT))
     proc = subprocess.run(
@@ -38,8 +46,9 @@ def test_port_runs_with_jax_click_optax_blocked(tmp_path):
          "-i", "cv", "-M", "8", "--vjoint"],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert (tmp_path / "results.json").exists()
     assert (tmp_path / "checkpoint.json").exists()
+    res = json.loads((tmp_path / "results.json").read_text())
+    assert "lml" in res and "elbo" not in res  # the second run's
 
 
 def test_no_jax_import_in_port_sources():
@@ -69,29 +78,45 @@ def test_wrappers_take_plain_version_only_on_cpu():
     assert tmv._on_cpu(torch.empty(1))
 
 
-@pytest.mark.parametrize("args,match", [
+@pytest.mark.parametrize("args,keys", [
     (["-o", "lbfgs", "cglb", "-m", "cglb", "-k", "rbf", "-i", "cv", "-M",
-      "4"], "optimizer 'lbfgs'.*ROADMAP.md"),
-    (["-o", "adam_0.01", "gpr", "-m", "gpr", "-k", "rbf"],
-     "model GPRConfig.*ROADMAP.md"),
+      "4"], {"cg_lower_bound", "elbo"}),
+    (["-o", "adam_0.01", "gpr", "-m", "gpr", "-k", "rbf"], {"lml"}),
 ])
-def test_unported_options_fail_clearly(tmp_path, monkeypatch, args, match):
+def test_unported_options_fail_clearly(tmp_path, monkeypatch, args, keys):
+    """What failed clearly while it was unported now runs: ``-o lbfgs`` and
+    the ``gpr`` leaf."""
     from cglb_tpu_torch.experiments import cli
 
     monkeypatch.setenv("CGLB_DATA_DIR", str(tmp_path / "no_data_here"))
     argv = (["-l", str(tmp_path), "--device", "cpu", "train", "-n", "1",
              "-d", "synth_40x1"] + args)
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(argv)
+    cli.main(argv)
+    res = json.loads((tmp_path / "results.json").read_text())
+    assert keys <= set(res) and math.isfinite(res["loss"])
 
 
 def test_gpr_metric_fails_clearly(tmp_path, monkeypatch):
+    """``gpr_metric`` runs: it evaluates a saved model as a dense GP and
+    writes ``gpr_metric.npy`` beside the parameter file; without the file
+    it fails on the file."""
     from cglb_tpu_torch.experiments import cli
 
     monkeypatch.setenv("CGLB_DATA_DIR", str(tmp_path / "no_data_here"))
-    with pytest.raises(NotImplementedError, match="GPRConfig.*ROADMAP.md"):
-        cli.main(["-l", str(tmp_path), "--device", "cpu", "gpr_metric", "-d",
-                  "synth_40x1", "-k", "rbf", "-p", str(tmp_path / "m.json")])
+    head = ["-l", str(tmp_path / "log"), "--device", "cpu"]
+    with pytest.raises(FileNotFoundError):
+        cli.main(head + ["gpr_metric", "-d", "synth_40x1", "-k", "rbf", "-p",
+                         str(tmp_path / "m.json")])
+    cli.main(head + ["train", "-n", "1", "-d", "synth_40x1", "-o", "staged",
+                     "gpr", "-m", "exactgp", "-k", "rbf"])
+    cli.main(head + ["gpr_metric", "-d", "synth_40x1", "-k", "rbf", "-p",
+                     str(tmp_path / "log" / "model.json")])
+    import numpy as np
+
+    got = np.load(tmp_path / "log" / "gpr_metric.npy",
+                  allow_pickle=True).item()
+    assert {"lml", "loss", "test/rmse", "test/nlpd", "id", "data"} <= set(got)
+    assert got["id"] == str(tmp_path / "log")
 
 
 def test_mesh_option_is_refused(tmp_path):
