@@ -442,6 +442,12 @@ def lbfgs_minimize(loss_fn: LossFn, params: torch.nn.Module, state,
     only with y.s > 0; a direction that is not a descent direction drops
     the memory; without memory the first trial step is min(1, 1 / |g|_1)
     along -g.
+
+    ``torch.optim.LBFGS`` is not the body because its strong-Wolfe search
+    takes a NaN trial value for an acceptable one: where a trial step leaves
+    the region in which the loss is finite (a GP loss has such a region) it
+    ends at NaN parameters or fails in its zoom phase
+    (tests/test_torch_lbfgs.py holds the case).
     """
     raws = [p for p in params.parameters() if p.requires_grad]
     to_vector = torch.nn.utils.parameters_to_vector

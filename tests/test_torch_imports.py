@@ -10,6 +10,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -79,13 +80,29 @@ def test_wrappers_take_plain_version_only_on_cpu():
 
 
 @pytest.mark.parametrize("args,keys", [
+    (["--mesh", "4"], {"--mesh", "not ported"}),
+    (["--dispatch-bound", "2"], {"--dispatch-bound", "not ported"}),
+])
+def test_unported_options_fail_clearly(tmp_path, capsys, args, keys):
+    """The two options that are still unported end the CLI with a message
+    that names them."""
+    from cglb_tpu_torch.experiments import cli
+
+    with pytest.raises(SystemExit):
+        cli.main(["-l", str(tmp_path), "--device", "cpu"] + args + [
+            "train", "-n", "1", "-d", "synth_40x1", "cglb", "-m", "cglb",
+            "-k", "rbf", "-i", "cv", "-M", "4"])
+    message = capsys.readouterr().err
+    assert all(word in message for word in keys)
+    assert not (tmp_path / "results.json").exists()
+
+
+@pytest.mark.parametrize("args,keys", [
     (["-o", "lbfgs", "cglb", "-m", "cglb", "-k", "rbf", "-i", "cv", "-M",
       "4"], {"cg_lower_bound", "elbo"}),
     (["-o", "adam_0.01", "gpr", "-m", "gpr", "-k", "rbf"], {"lml"}),
 ])
-def test_unported_options_fail_clearly(tmp_path, monkeypatch, args, keys):
-    """What failed clearly while it was unported now runs: ``-o lbfgs`` and
-    the ``gpr`` leaf."""
+def test_lbfgs_and_gpr_leaf_run_from_cli(tmp_path, monkeypatch, args, keys):
     from cglb_tpu_torch.experiments import cli
 
     monkeypatch.setenv("CGLB_DATA_DIR", str(tmp_path / "no_data_here"))
@@ -97,22 +114,29 @@ def test_unported_options_fail_clearly(tmp_path, monkeypatch, args, keys):
 
 
 def test_gpr_metric_fails_clearly(tmp_path, monkeypatch):
-    """``gpr_metric`` runs: it evaluates a saved model as a dense GP and
-    writes ``gpr_metric.npy`` beside the parameter file; without the file
-    it fails on the file."""
+    """Without its parameter file ``gpr_metric`` fails on the file and
+    writes nothing."""
+    from cglb_tpu_torch.experiments import cli
+
+    monkeypatch.setenv("CGLB_DATA_DIR", str(tmp_path / "no_data_here"))
+    with pytest.raises(FileNotFoundError):
+        cli.main(["-l", str(tmp_path / "log"), "--device", "cpu",
+                  "gpr_metric", "-d", "synth_40x1", "-k", "rbf", "-p",
+                  str(tmp_path / "m.json")])
+    assert not list(tmp_path.rglob("gpr_metric.npy"))
+
+
+def test_gpr_metric_runs(tmp_path, monkeypatch):
+    """``gpr_metric`` evaluates a saved model as a dense GP and writes
+    ``gpr_metric.npy`` beside the parameter file."""
     from cglb_tpu_torch.experiments import cli
 
     monkeypatch.setenv("CGLB_DATA_DIR", str(tmp_path / "no_data_here"))
     head = ["-l", str(tmp_path / "log"), "--device", "cpu"]
-    with pytest.raises(FileNotFoundError):
-        cli.main(head + ["gpr_metric", "-d", "synth_40x1", "-k", "rbf", "-p",
-                         str(tmp_path / "m.json")])
     cli.main(head + ["train", "-n", "1", "-d", "synth_40x1", "-o", "staged",
                      "gpr", "-m", "exactgp", "-k", "rbf"])
     cli.main(head + ["gpr_metric", "-d", "synth_40x1", "-k", "rbf", "-p",
                      str(tmp_path / "log" / "model.json")])
-    import numpy as np
-
     got = np.load(tmp_path / "log" / "gpr_metric.npy",
                   allow_pickle=True).item()
     assert {"lml", "loss", "test/rmse", "test/nlpd", "id", "data"} <= set(got)

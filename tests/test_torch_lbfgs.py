@@ -178,6 +178,48 @@ def test_lbfgs_carry_contract():
     assert not np.isfinite(res.final_loss) and len(calls) < 5 * 25
 
 
+def test_lbfgs_backs_off_a_non_finite_trial_step():
+    """Why the port has its own line search: a GP loss is not finite
+    everywhere (a trial step can leave the region where the Cholesky factor
+    exists), and ``torch.optim.LBFGS`` treats a NaN trial value as an
+    acceptable one.  On sum((sqrt(w) - 1)^2 + w / 10) from w = (8, 8), NaN
+    for w < 0, it ends at NaN parameters or fails inside its line search;
+    ``lbfgs_minimize`` counts the NaN as too long a step and reaches the
+    minimum 2 / 11 to 1e-9."""
+    def f(w):
+        return torch.sum((torch.sqrt(w) - 1.0) ** 2 + 0.1 * w)
+
+    def module():
+        m = torch.nn.Module()
+        m.w = torch.nn.Parameter(torch.tensor([8.0, 8.0],
+                                              dtype=torch.float64))
+        return m
+
+    theirs = module()
+    opt = torch.optim.LBFGS([theirs.w], history_size=15, max_iter=1,
+                            max_eval=26, line_search_fn="strong_wolfe")
+
+    def closure():
+        opt.zero_grad()
+        loss = f(theirs.w)
+        loss.backward()
+        return loss
+
+    try:
+        for _ in range(30):
+            opt.step(closure)
+        failed = not bool(torch.isfinite(f(theirs.w)))
+    except IndexError:  # its zoom phase, on an empty bracket
+        failed = True
+    assert failed
+
+    ours = module()
+    res = ttraining.lbfgs_minimize(lambda p, s: (f(p.w), s), ours, None, 30)
+    np.testing.assert_allclose(res.final_loss, 2.0 / 11.0, atol=1e-9)
+    np.testing.assert_allclose(ours.w.detach().numpy(), 1.0 / 1.21,
+                               atol=1e-6)
+
+
 @pytest.fixture()
 def synth(monkeypatch, tmp_path):
     from cglb_tpu_torch.experiments.datasets import get_dataset

@@ -461,16 +461,20 @@ def test_backend_scipy_tol_without_cg_runs_the_plain_bridge(rng):
 
 
 def test_backend_rejects_unported_optimizers(rng):
-    """``lbfgs`` and ``lbfgs_native`` are ported and run on any model;
-    ``staged`` is the exact-GP schedule and is refused on a sparse model,
-    as an unknown optimizer name is."""
+    """``staged`` is the exact-GP schedule and is refused on a sparse model,
+    as an optimizer name that the port does not know is."""
     _, tp, X, Y = _problem(rng, n=20, m=3)
     model = Model("sgpr", tp, (torch.tensor(X), torch.tensor(Y)))
     backend = Torch(device="cpu")
-    start = model.loss_value()
-    for name in ("lbfgs", "lbfgs_native"):
-        res = backend.optimize(model, None, 2, None, name)
-        assert np.isfinite(res.final_loss) and model.loss_value() < start
     for name in ("staged", "sgd_0.1"):
         with pytest.raises(NotImplementedError, match=name):
             backend.optimize(model, None, 1, None, name)
+
+
+@pytest.mark.parametrize("name", ["lbfgs", "lbfgs_native"])
+def test_backend_runs_lbfgs_routes_on_sparse_model(rng, name):
+    _, tp, X, Y = _problem(rng, n=20, m=3)
+    model = Model("sgpr", tp, (torch.tensor(X), torch.tensor(Y)))
+    start = model.loss_value()
+    res = Torch(device="cpu").optimize(model, None, 2, None, name)
+    assert np.isfinite(res.final_loss) and model.loss_value() < start
