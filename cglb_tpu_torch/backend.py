@@ -13,7 +13,11 @@ kernels 1 and 2 above 4096 rows, whatever the matvec mode); optimizers:
 ``scipy``, ``scipy4``, ``scipy_tol``, ``lbfgs``, ``lbfgs_native``, ``staged``
 and ``adam_<lr>``, with periodic full-state checkpoints.  On ``gpr`` and
 ``exactgp`` every ``adam_<lr>`` runs the staged schedule with that learning
-rate, as the JAX package's backend does.
+rate, as the JAX package's backend does.  ``optimize(dispatch_bound=k)``
+is the JAX package's dispatch-bounded Adam (``cglb_tpu/parallel/dispatch.py``):
+the port's CG already returns to the host every iteration, so that step is
+the one-call loss, and k > 0 only logs each step's CG stats as the bounded
+loop does.
 """
 
 from __future__ import annotations
@@ -370,14 +374,18 @@ class Torch:
     def optimize(cls, model: Model, datasets, num_steps: int,
                  logger: Optional[Logger] = None, optimizer: str = None,
                  checkpoint_every: int = 0, checkpoint_dir=None,
-                 checkpoint_offset: int = 0, resume_extra: Dict = None):
+                 checkpoint_offset: int = 0, resume_extra: Dict = None,
+                 dispatch_bound: int = 0):
         """checkpoint_every > 0 (with checkpoint_dir): write a full-state
         checkpoint every that-many accepted iterations, so that a killed run
         resumes (CLI --ckpt-every / --resume) instead of restarting.
         checkpoint_offset: iterations done before this call (recorded as
         extra["iters_done"]).
         resume_extra: the loaded checkpoint's extra dict (scipy_tol's live
-        tolerance level)."""
+        tolerance level).
+        dispatch_bound: CLI ``--dispatch-bound``; > 0 logs each ``adam_*``
+        step's CG stats on a CGLB model with its own CG solve (the step is
+        already bounded: CG returns to the host every iteration)."""
         loss_fn = model.loss_fn()
         carry = model.carry_in()
         cglb_kind = model.kind in _CGLB_KINDS
@@ -448,9 +456,15 @@ class Torch:
                     loss_fn, model.params, *model.data, num_steps, logger,
                     adam_lr=lr, sync_fn=sync_fn)
             else:
-                res = _training.adam_minimize(loss_fn, model.params, carry,
-                                              num_steps, lr, logger,
-                                              sync_fn=sync_fn)
+                # dispatch-bounded (CGLB with its own CG solve): the same
+                # step, with each step's CG stats logged as the JAX
+                # package's bounded loop logs them
+                bounded = (dispatch_bound > 0 and cglb_kind
+                           and not model.run_cfg.v_is_external)
+                res = _training.adam_minimize(
+                    loss_fn, model.params, carry, num_steps, lr, logger,
+                    sync_fn=sync_fn,
+                    feval_stats_fn=stats_fn if bounded else None)
         else:
             raise NotImplementedError(optimizer)
         model.carry_out(res.state)

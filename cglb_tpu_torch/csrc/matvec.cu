@@ -44,16 +44,24 @@ int cglb_matvec_geometry(int family, int dp, int b, int accurate, int ls_grad,
   return cglb::dispatch(a, family, dp, b, cglb::kGeometry);
 }
 
-// out [segments, b, nj] (double when accurate, else float): segment s holds
-// p [b, rows s*seg_rows ...] @ rho(xr rows, xc); p is [b, ldp], zero past ni.
-// With row_out (symmetric: xr == xc), the segments hold the pairs i < c1 of
-// each column block only and row_out [column blocks, b, ni] fp32 the row
-// side; out is the sum of both over their first axis.
+// The launch takes the columns [col_block0 * block columns, + ldo) of xc
+// and the rows [0, row_end) of xr.  out [segments, b, ldo] (double when
+// accurate, else float): segment s holds p [b, rows s*seg_rows ...] @
+// rho(xr rows, xc columns); p is [b, ldp], zero past ni.  With row_out
+// (symmetric: xr == xc), the segments hold the pairs i < c1 of each column
+// block only and row_out [the launch's column blocks, b, row_end] fp32 the
+// row side, every row of it written.  The general path takes all of xc and
+// xr in one launch (col_block0 = 0, ldo = nj, row_end = ni); the symmetric
+// one may take its column blocks in slabs, row_end then being the end of
+// the slab's last block.
 int cglb_matvec(const float* xr, long long ni, const float* xc, long long nj,
                 const float* p, long long ldp, int b, int dp, int family,
-                int accurate, int seg_rows, int segments, void* out,
-                float* row_out, void* stream) {
-  if (cglb::bad_sizes(ni, nj, ldp, 0)) return cglb::kBadArgument;
+                int accurate, int seg_rows, int segments, long long row_end,
+                int col_block0, long long ldo, void* out, float* row_out,
+                void* stream) {
+  if (cglb::bad_sizes(ni, nj, ldp, 0) || row_end <= 0 || row_end > ni ||
+      ldo <= 0 || ldo > nj || col_block0 < 0)
+    return cglb::kBadArgument;
   cglb::Args a{};
   a.xr = xr;
   a.ni = static_cast<int>(ni);
@@ -63,6 +71,9 @@ int cglb_matvec(const float* xr, long long ni, const float* xc, long long nj,
   a.ldp = static_cast<int>(ldp);
   a.seg_rows = seg_rows;
   a.segments = segments;
+  a.row_end = static_cast<int>(row_end);
+  a.col_block0 = col_block0;
+  a.ldo = static_cast<int>(ldo);
   a.out = out;
   a.row_out = row_out;
   a.accurate = accurate != 0;
@@ -90,6 +101,7 @@ int cglb_ls_grad(const float* xr, long long ni, const float* xc, long long nj,
   a.ldg = static_cast<int>(ldg);
   a.seg_rows = seg_rows;
   a.segments = segments;
+  a.row_end = a.ni;
   a.out = partial;
   a.accurate = true;
   a.ls_grad = true;

@@ -21,8 +21,11 @@ struct Args {
   int ldg;
   int seg_rows;
   int segments;
+  int row_end;     // rows the segments cover: [0, row_end), row_end <= ni
+  int col_block0;  // kernel 1: the launch's first column block
+  int ldo;         // kernel 1: columns of out from column block col_block0
   void* out;
-  float* row_out;  // kernel 1, symmetric: [column blocks, b, ni] row sums
+  float* row_out;  // kernel 1, symmetric: [launch's blocks, b, row_end]
   bool accurate;
   bool ls_grad;
   bool symmetric;

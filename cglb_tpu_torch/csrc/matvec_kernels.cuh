@@ -39,7 +39,14 @@
 //   and, through a warp sum over the block's columns, the row's own output
 //   (kernel 1: [column blocks, B, N] fp32 row sums, 128 terms each; kernel
 //   2: m_ij + m_ji in one pass), and rows in [c0, c1) feed its columns only.
-//   That halves the profile evaluations.
+//   That halves the profile evaluations.  Kernel 1's row sums take one float
+//   per (column block, row): 117.8 GB at N = 1,373,017 and DP 32, B = 1.  So
+//   the wrapper launches the column blocks in slabs (col_block0, the grid's
+//   x extent) whose row sums, over the rows [0, row_end) that the slab's
+//   blocks take, fit a fixed budget, and reduces each slab's sums in a fixed
+//   order before the next: row partials stay O(N) at any N, each pair is
+//   still taken once, and a single slab covers every block up to the kin40k
+//   shapes.
 // - Register tiles.  A lane owns kCols columns (coordinates in registers)
 //   and each warp step takes kRows rows (Tile, chosen from timings of tile
 //   variants on an H100, PERF.md), so a step runs kCols * kRows
@@ -59,9 +66,10 @@
 //   seg_rows rows (a multiple of kStageRows), one grid row per segment; the
 //   wrapper picks seg_rows from the SM count and the resident blocks per SM
 //   (cglb_matvec_geometry) so that the blocks form whole waves.  Kernel 1
-//   writes [segments, B, nj] partials and kernel 2 [segments * blocks, DP];
-//   the wrapper sums them in a fixed order.  No atomics anywhere: two
-//   launches on the same inputs give bitwise-equal results.
+//   writes [segments, B, ldo] partials (its launch's columns) and kernel 2
+//   [segments * blocks, DP]; the wrapper sums them in a fixed order.  No
+//   atomics anywhere: two launches on the same inputs give bitwise-equal
+//   results.
 // - Fast transcendentals (common.cuh: ex2.approx, sqrt.approx) in every
 //   tier.  On the card they cost no measurable accuracy and save about a
 //   fifth of the accurate tier's time (PERF.md).
@@ -213,15 +221,15 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // One staged tile (rows i0..) of kernel 1 against the lane's columns.
 // SYM: the row side too, sum_j p[b, j] rho_ij over the block's columns,
-// stored to rows_out[b * ni + i] for rows below c0.  MASKED (symmetric tiles
-// that reach c0): rows at or past c1 add nothing, and only rows below c0
-// store their row sums.
+// stored to rows_out[b * ld_rows + i] for rows below c0.  MASKED (symmetric
+// tiles that reach c0): rows at or past c1 add nothing, and only rows below
+// c0 store their row sums.
 template <int FAM, int DP, int B, bool SYM, bool MASKED, int kC,
           int kR, int kT>
 __device__ __forceinline__ void matvec_tile(
     const float* xt, const float* pt, const float (&xj)[kC][DP],
     const float (&pj)[kC][B], float (&run)[kC][B], int warp, int lane,
-    int i0, int c0, int c1, float* __restrict__ rows_out, int ni) {
+    int i0, int c0, int c1, float* __restrict__ rows_out, int ld_rows) {
 #pragma unroll 2
   for (int r0 = warp * kR; r0 < kT; r0 += kWarps * kR) {
 #pragma unroll
@@ -256,7 +264,7 @@ __device__ __forceinline__ void matvec_tile(
 #pragma unroll
         for (int b = 0; b < B; ++b) {
           const float s = warp_sum(v[b]);
-          if (lane == 0) rows_out[(size_t)b * ni + i] = s;
+          if (lane == 0) rows_out[(size_t)b * ld_rows + i] = s;
         }
       }
     }
@@ -268,7 +276,8 @@ __global__ void __launch_bounds__(kThreads, (MinBlocks<DP, B>::value))
 matvec_kernel(const float* __restrict__ xr, int ni,
               const float* __restrict__ xc, int nj,
               const float* __restrict__ p, int ldp, int seg_rows,
-              Acc* __restrict__ out, float* __restrict__ row_out) {
+              int row_end, int col_block0, Acc* __restrict__ out, int ldo,
+              float* __restrict__ row_out) {
   using T = Tile<DP, false>;
   constexpr int kC = T::kCols, kR = T::kRows, kT = T::kStageRows;
   __shared__ __align__(16) float xs[kStages][kT * DP];
@@ -277,10 +286,12 @@ matvec_kernel(const float* __restrict__ xr, int ni,
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int c0 = blockIdx.x * T::kBlockCols;  // the block's columns [c0, c1)
+  const int j_begin = col_block0 * T::kBlockCols;  // out's first column
+  // the block's columns [c0, c1)
+  const int c0 = j_begin + blockIdx.x * T::kBlockCols;
   const int c1 = min(c0 + T::kBlockCols, nj);
   const int i_begin = blockIdx.y * seg_rows;
-  const int seg_end = min(i_begin + seg_rows, ni);
+  const int seg_end = min(i_begin + seg_rows, row_end);
   // symmetric: the rows at or past c1 are taken by their own column blocks
   const int i_end = SYM ? min(seg_end, c1) : seg_end;
   const int n_tiles = i_end > i_begin ? (i_end - i_begin + kT - 1) / kT : 0;
@@ -300,13 +311,13 @@ matvec_kernel(const float* __restrict__ xr, int ni,
   float* rows_out = nullptr;
   if (SYM) {
     load_column_values<B, kC>(pj, p, ldp, nj, c0 + lane);
-    rows_out = row_out + (size_t)blockIdx.x * B * ni;
+    rows_out = row_out + (size_t)blockIdx.x * B * row_end;
     // this segment's rows from c0 on get no row sum from this block
     const int z0 = max(i_begin, c0);
     const int len = seg_end - z0;
     for (int k = threadIdx.x; k < B * len; k += kThreads) {
       const int b = k / len;
-      rows_out[(size_t)b * ni + z0 + (k - b * len)] = 0.0f;
+      rows_out[(size_t)b * row_end + z0 + (k - b * len)] = 0.0f;
     }
   }
   Acc acc[kC][B];
@@ -336,13 +347,13 @@ matvec_kernel(const float* __restrict__ xr, int ni,
     if constexpr (SYM) {
       if (i0 + kT > c0)
         matvec_tile<FAM, DP, B, true, true, kC, kR, kT>(
-            xt, pt, xj, pj, run, warp, lane, i0, c0, c1, rows_out, ni);
+            xt, pt, xj, pj, run, warp, lane, i0, c0, c1, rows_out, row_end);
       else
         matvec_tile<FAM, DP, B, true, false, kC, kR, kT>(
-            xt, pt, xj, pj, run, warp, lane, i0, c0, c1, rows_out, ni);
+            xt, pt, xj, pj, run, warp, lane, i0, c0, c1, rows_out, row_end);
     } else {
       matvec_tile<FAM, DP, B, false, false, kC, kR, kT>(
-          xt, pt, xj, pj, run, warp, lane, i0, c0, c1, rows_out, ni);
+          xt, pt, xj, pj, run, warp, lane, i0, c0, c1, rows_out, row_end);
     }
 #pragma unroll
     for (int c = 0; c < kC; ++c)
@@ -361,7 +372,8 @@ matvec_kernel(const float* __restrict__ xr, int ni,
       const int j = c0 + k;
       Acc s = red[k];
       for (int w = 1; w < kWarps; ++w) s += red[w * T::kBlockCols + k];
-      if (j < nj) out[((size_t)blockIdx.y * B + b) * nj + j] = s;
+      if (j < nj)
+        out[((size_t)blockIdx.y * B + b) * ldo + (j - j_begin)] = s;
     }
     __syncthreads();
   }
@@ -523,16 +535,26 @@ int geometry(Kernel kernel, int* geo) {
 }
 
 // The row split must be the one the wrapper allocated partials for, and a
-// symmetric launch needs one point set (and g staged like p).
+// symmetric launch needs one point set (and g staged like p).  Only kernel
+// 1's symmetric path takes a part of the columns (a slab), and then the
+// rows up to the end of its columns, which are all the rows its blocks
+// take.
 template <typename T>
 bool bad_split(const Args& a) {
   const bool bad_sym =
       a.symmetric && (a.xr != a.xc || a.ni != a.nj ||
                       (a.ls_grad && a.ldg % 4 != 0));
+  const bool whole = a.row_end == a.ni && a.col_block0 == 0 &&
+                     (a.ls_grad || a.ldo == a.nj);
+  const long long col_end = (long long)a.col_block0 * T::kBlockCols + a.ldo;
+  const bool bad_slab = (!a.symmetric || a.ls_grad)
+                            ? !whole
+                            : (col_end > a.nj || a.row_end != col_end);
   return a.seg_rows <= 0 || a.seg_rows % T::kStageRows != 0 ||
-         a.segments != (a.ni + a.seg_rows - 1) / a.seg_rows ||
+         a.row_end <= 0 ||
+         a.segments != (a.row_end + a.seg_rows - 1) / a.seg_rows ||
          a.ldp < a.ni || a.ldp % 4 != 0 || (a.ls_grad && a.ldg < a.nj) ||
-         bad_sym;
+         bad_sym || bad_slab;
 }
 
 template <int FAM, int DP, int B, bool SYM>
@@ -558,19 +580,17 @@ int run_sym(const Args& a, Op op) {
                                           static_cast<double*>(a.out));
   } else {
     if (bad_split<TM>(a)) return kBadArgument;
-    const dim3 grid((a.nj + TM::kBlockCols - 1) / TM::kBlockCols, a.segments);
+    const dim3 grid((a.ldo + TM::kBlockCols - 1) / TM::kBlockCols, a.segments);
     if (a.accurate)
       matvec_kernel<FAM, DP, B, double, SYM>
-          <<<grid, kThreads, 0, a.stream>>>(a.xr, a.ni, a.xc, a.nj, a.p,
-                                            a.ldp, a.seg_rows,
-                                            static_cast<double*>(a.out),
-                                            a.row_out);
+          <<<grid, kThreads, 0, a.stream>>>(
+              a.xr, a.ni, a.xc, a.nj, a.p, a.ldp, a.seg_rows, a.row_end,
+              a.col_block0, static_cast<double*>(a.out), a.ldo, a.row_out);
     else
       matvec_kernel<FAM, DP, B, float, SYM>
-          <<<grid, kThreads, 0, a.stream>>>(a.xr, a.ni, a.xc, a.nj, a.p,
-                                            a.ldp, a.seg_rows,
-                                            static_cast<float*>(a.out),
-                                            a.row_out);
+          <<<grid, kThreads, 0, a.stream>>>(
+              a.xr, a.ni, a.xc, a.nj, a.p, a.ldp, a.seg_rows, a.row_end,
+              a.col_block0, static_cast<float*>(a.out), a.ldo, a.row_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,8 +17,11 @@ schedule with that learning rate).  ``metric ... <leaf> -p model.json`` writes
 saved model as a dense GP and writes ``gpr_metric.npy`` beside that file,
 and ``baseline mean|linear`` a ``results.json``, as the JAX CLI does.
 ``--device`` (default ``cuda``) is new; ``--common-dtype mixed`` is an alias of
-float64.  What is not ported yet parses and then fails naming its ROADMAP
-queue: ``--mesh`` and ``--dispatch-bound``.
+float64.  ``--dispatch-bound K`` is accepted: the port's CG returns to the
+host every iteration, so every ``adam_<lr>`` step is already bounded, and
+K > 0 logs each step's CG stats as the JAX CLI's bounded loop does.  What is
+not ported yet parses and then fails naming its ROADMAP queue: ``--mesh``
+above 1.
 """
 
 from __future__ import annotations
@@ -65,6 +68,7 @@ class _Action:
     ckpt_every: int = 0   # full-state checkpoint interval (iterations)
     resume: bool = False  # continue from logdir/checkpoint.json if present
     holdout_interval: int = _HOLDOUT_INTERVAL
+    dispatch_bound: int = 0  # --dispatch-bound
 
     def execute(self, model_cfg, param_file: Optional[str] = None) -> None:
         model = self.backend.create_model(model_cfg, self.dataset.train,
@@ -95,7 +99,8 @@ class _Action:
             checkpoint_every=self.ckpt_every,
             checkpoint_dir=logdir if self.ckpt_every else None,
             checkpoint_offset=done,
-            resume_extra=model.last_checkpoint_extra)
+            resume_extra=model.last_checkpoint_extra,
+            dispatch_bound=self.dispatch_bound)
         backend.save(model, logdir)
 
         meta = {"id": logdir, "data": self.dataset.provenance}
@@ -167,7 +172,9 @@ def build_parser() -> argparse.ArgumentParser:
                     default="mixed", help="mixed is an alias of float64")
     ap.add_argument("--mesh", type=int, default=0)
     ap.add_argument("--max-cg-iters", type=int, default=100)
-    ap.add_argument("--dispatch-bound", type=int, default=0)
+    ap.add_argument("--dispatch-bound", type=int, default=0,
+                    help="adam_* on cglb: log each step's CG stats (CG "
+                         "returns to the host every iteration already)")
     commands = ap.add_subparsers(dest="command", required=True)
 
     train = commands.add_parser("train")
@@ -213,9 +220,8 @@ def _model_config(args):
 
 def _unported(args) -> Optional[str]:
     if args.mesh not in (0, 1):
-        return "--mesh (multi-GPU, ROADMAP.md queue 1)"
-    if args.dispatch_bound:
-        return "--dispatch-bound (ROADMAP.md queue 1)"
+        return ("--mesh (multi-GPU over NCCL, the next slice: ROADMAP.md "
+                "queue 1)")
     return None
 
 
@@ -254,7 +260,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         action = _Action(kind="train", num_steps=args.num_steps,
                          optimizer=args.optimizer,
                          ckpt_every=args.ckpt_every, resume=args.resume,
-                         holdout_interval=args.holdout_interval, **common)
+                         holdout_interval=args.holdout_interval,
+                         dispatch_bound=args.dispatch_bound, **common)
     elif args.command == "metric":
         action = _Action(kind="metric",
                          metric_dst=Path(logdir, "metric.npy"), **common)

@@ -18,6 +18,12 @@ The warm start ``v0`` ([D, N]) is an explicit input and output
 at ``v0`` as given, and the gradient flows into it when it is a trainable
 ``Param``'s value.  The n2m variant materializes K(X, X): O(N^2) memory, an
 ablation.
+
+Above ``sgpr.CHUNK_THRESHOLD_ELEMENTS`` (or with an explicit ``chunk_size``)
+the common terms go by column chunks (models/sgpr.py), A is kept only in the
+preconditioner's dtype and, by default there, each chunk is recomputed in
+the backward (``remat_common_terms``, cglb_tpu/models/cglb.py:222-265); the
+predictor's A @ res then comes from ``sgpr.kuf_weighted``.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from ..ops import preconditioners as _pc
 from ..ops.kuf import kuf as _kuf
 from ..ops.operators import make_dense_operator
 from .gaussian import mean_apply
-from .sgpr import (CommonTerms, SGPRParams, common_terms,
+from .sgpr import (CommonTerms, SGPRParams, common_terms, kuf_weighted,
                    n2m_log_trace)
 
 __all__ = ["CGLBConfig", "CGLBAux", "init_v0", "bound", "loss",
@@ -105,9 +111,10 @@ def _make_precond(ct: CommonTerms, sigma_sq, cfg: CGLBConfig,
     LB is re-derived from the SAME cast A the preconditioner applies: the
     Woodbury identity is positive only when both factors describe the same
     A.  ct.LB is reused only when it was computed from exactly this A
-    (``consistent_ct``) in the same dtype."""
+    (``consistent_ct``) and both are in that dtype (a chunked build gives A
+    in the preconditioner's fp32 beside an fp64 LB)."""
     pd = _config.torch_dtype(cfg.precond_dtype)
-    if consistent_ct and ct.A.dtype == pd:
+    if consistent_ct and ct.A.dtype == pd and ct.LB.dtype == pd:
         return _pc.NystromPreconditioner(A=ct.A, LB=ct.LB, sigma_sq=sigma_sq)
     A = ct.A.to(pd)
     eye = torch.eye(A.shape[0], dtype=pd, device=A.device)
@@ -147,13 +154,33 @@ def _quad_form_bound(params: SGPRParams, ct: CommonTerms, X, Y, v0,
                         cg_residual_error=stats.residual_error)
 
 
+def _common_terms(params: SGPRParams, X, cfg: CGLBConfig, jitter,
+                  chunk_size, remat) -> CommonTerms:
+    """The common terms; where they go by column chunks (models/sgpr.py
+    decides), A is built in the preconditioner's dtype, except for n2m,
+    whose trace needs A in fp64."""
+    a_dtype = (None if cfg.logdet_variant == "n2m"
+               else _config.torch_dtype(cfg.precond_dtype))
+    return common_terms(params, X, jitter, chunk_size=chunk_size,
+                        remat=remat, a_dtype=a_dtype)
+
+
 def bound(params: SGPRParams, X, Y, v0, cfg: CGLBConfig = CGLBConfig(),
           jitter: float = None, matvec: Optional[Callable] = None,
           matvec_cg: Optional[Callable] = None,
-          max_error: Optional[float] = None) -> Tuple[torch.Tensor, CGLBAux]:
-    """The CGLB lower bound on log p(Y|X) and the CG aux."""
+          max_error: Optional[float] = None,
+          remat_common_terms: bool = True,
+          chunk_size: Optional[int] = None) -> Tuple[torch.Tensor, CGLBAux]:
+    """The CGLB lower bound on log p(Y|X) and the CG aux.
+
+    chunk_size: columns per chunk of the common terms (default: by size,
+    models/sgpr.py ``chunk_width``).  remat_common_terms: where they are
+    chunked, recompute each chunk in the backward instead of storing its
+    Kuf, e and A (chunked by size, storing them would hold what chunking
+    saves)."""
     N, D = Y.shape
-    ct = common_terms(params, X, jitter)
+    ct = _common_terms(params, X, cfg, jitter, chunk_size,
+                       remat_common_terms)
     b = -0.5 * N * D * math.log(2.0 * math.pi)
     b = b + _logdet_bound(params, ct, X, Y, cfg.logdet_variant)
     quad, aux = _quad_form_bound(params, ct, X, Y, v0, cfg, matvec,
@@ -164,10 +191,14 @@ def bound(params: SGPRParams, X, Y, v0, cfg: CGLBConfig = CGLBConfig(),
 def loss(params: SGPRParams, X, Y, v0, cfg: CGLBConfig = CGLBConfig(),
          jitter: float = None, matvec: Optional[Callable] = None,
          matvec_cg: Optional[Callable] = None,
-         max_error: Optional[float] = None) -> Tuple[torch.Tensor, CGLBAux]:
+         max_error: Optional[float] = None,
+         remat_common_terms: bool = True,
+         chunk_size: Optional[int] = None) -> Tuple[torch.Tensor, CGLBAux]:
     """Training loss = -bound; aux carries the warm start and CG stats."""
     b, aux = bound(params, X, Y, v0, cfg, jitter, matvec,
-                   matvec_cg=matvec_cg, max_error=max_error)
+                   matvec_cg=matvec_cg, max_error=max_error,
+                   remat_common_terms=remat_common_terms,
+                   chunk_size=chunk_size)
     return -b, aux
 
 
@@ -188,11 +219,14 @@ def predict_prepare(params: SGPRParams, X, Y, v0,
                     jitter: float = None,
                     matvec: Optional[Callable] = None) -> PredictCache:
     """Common terms, the CG solve at ``cg_tolerance`` (None, vzero and the
-    joint v reuse v0 as is) and the [M, D] residual projection, once."""
+    joint v reuse v0 as is) and the [M, D] residual projection, once.
+    Where the common terms were chunked and A is held in the
+    preconditioner's dtype, A @ res is ``kuf_weighted``'s, so that no fp64
+    [M, N] is held."""
     sigma_sq = params.noise_variance.value
     sigma = torch.sqrt(sigma_sq)
     err = Y - mean_apply(params.mean, X)
-    ct = common_terms(params, X, jitter)
+    ct = _common_terms(params, X, cfg, jitter, None, False)
     if matvec is None:
         matvec = make_dense_operator(params.kernel, X, sigma_sq)
     if cg_tolerance is None or cfg.v_is_external:
@@ -202,7 +236,11 @@ def predict_prepare(params: SGPRParams, X, Y, v0,
         v, _ = _cg.preconditioned_cg(matvec, err.T, v0, P, cg_tolerance,
                                      cfg.max_cg_iters, cfg.restart_cg_iters)
     res = err - matvec(v).T  # [N, D]
-    c = torch.linalg.solve_triangular(ct.LB, ct.A @ res, upper=False) / sigma
+    if ct.A.dtype == X.dtype:
+        Ares = ct.A @ res
+    else:  # chunked, A in the preconditioner's dtype
+        Ares = kuf_weighted(params, ct.L, X, res, sigma)
+    c = torch.linalg.solve_triangular(ct.LB, Ares, upper=False) / sigma
     return PredictCache(v=v, c=c, L=ct.L, LB=ct.LB)
 
 

@@ -7,10 +7,18 @@ Counterpart of ``cglb_tpu/models/sgpr.py`` on its fp64 route
     A  = L^-1 Kuf / sigma                    [M, N]
     B  = A A^T + I,  LB = chol(B)            [M, M]
 
-Kuf comes from kernel 3 (ops/kuf.py), unchunked: at M = 2048, N = 26800 it
-is 439 MB in fp64.  The JAX package's ``mixed`` gram, df32 and int8 paths
-work around fp64 emulation on the TPU and are not ported; the backend treats
-``common_dtype="mixed"`` as fp64.
+Kuf comes from kernel 3 (ops/kuf.py).  Up to CHUNK_THRESHOLD_ELEMENTS
+Kuf elements (kin40k: M = 2048, N = 26800, 439 MB in fp64) in one pass;
+above, over column chunks (``_kuf_terms(chunk_size, remat)``, :139-213 of
+the JAX module): each chunk's Kuf, A and partial products are formed and
+dropped in turn, A A^T and A W are summed over the chunks in order, A is
+kept only in the dtype its consumer asks for (the CGLB preconditioner's
+fp32), and with ``remat`` the backward recomputes each chunk
+(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` on the
+``lax.map`` body) instead of storing its Kuf, e and A.  ``kuf_weighted``
+(:565-601) forms A @ W by chunks for the CGLB predictor.  The JAX package's
+``mixed`` gram, df32 and int8 paths work around fp64 emulation on the TPU
+and are not ported; the backend treats ``common_dtype="mixed"`` as fp64.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import config as _config
 from ..ops import chol as _chol
@@ -29,7 +38,23 @@ from .gaussian import ConstantMean, mean_apply
 
 __all__ = ["SGPRParams", "CommonTerms", "common_terms", "elbo", "elbo_n2m",
            "n2m_log_trace", "upper_bound", "SGPRPredictCache",
-           "predict_prepare", "predict_from_cache", "predict_f"]
+           "predict_prepare", "predict_from_cache", "predict_f",
+           "kuf_weighted", "chunk_width", "CHUNK_THRESHOLD_ELEMENTS",
+           "CHUNK_ELEMENTS"]
+
+# Above this many Kuf elements (N x M) the common terms go by column chunks.
+# Unchunked, a loss and its gradient hold about six [M, N] tensors at once
+# (Kuf and kernel 3's residual e, the triangular solve's output A, the fp32
+# copy for the preconditioner, their cotangents in the backward), some 50
+# bytes an element: 13 GiB at 2^28 elements, which leaves an 80 GB card
+# room for the rest.  kin40k at M 2048 (55M elements) stays in one pass;
+# houseelectric at M 1024 (1.41G elements: 11.2 GB for one fp64 [M, N])
+# is chunked.  (The JAX package's 32M threshold was set for a 16 GB TPU
+# that emulates fp64 with [8, M, N] temporaries: it would chunk kin40k.)
+CHUNK_THRESHOLD_ELEMENTS = 1 << 28
+# Kuf elements of one chunk: a chunk's [M, width] fp64 blocks are 512 MiB,
+# and its forward or its recompute in the backward holds a few of them.
+CHUNK_ELEMENTS = 1 << 26
 
 
 def _solve_lower(L, B):
@@ -81,22 +106,87 @@ def _kuu_chol(params: SGPRParams, jitter: float) -> torch.Tensor:
     return _chol.chol_retry(params.kernel.K(Z), jitter)
 
 
-def _kuf_terms(params: SGPRParams, L, X, sigma_scale, W=None):
-    """A = L^-1 Kuf / sigma_scale, A A^T and optionally A @ W."""
-    kuf = _kuf(params.kernel, params.inducing_Z.value, X)
-    A = _solve_lower(L, kuf) / sigma_scale
-    AAT = A @ A.T
-    AW = None if W is None else A @ W
+def chunk_width(N: int, M: int, chunk_size: int = None):
+    """Columns per chunk of the [M, N] common terms: ``chunk_size`` when
+    given, else CHUNK_ELEMENTS / M above CHUNK_THRESHOLD_ELEMENTS; None for
+    one unchunked pass."""
+    if chunk_size is None and N * M > CHUNK_THRESHOLD_ELEMENTS:
+        chunk_size = max(CHUNK_ELEMENTS // M, 1)
+    if chunk_size is None or N <= chunk_size:
+        return None
+    return int(chunk_size)
+
+
+def _chunks(N: int, width: int):
+    return [(c0, min(c0 + width, N)) for c0 in range(0, N, width)]
+
+
+def _kuf_terms(params: SGPRParams, L, X, sigma_scale, W=None,
+               chunk_size: int = None, remat: bool = False, a_dtype=None,
+               with_a: bool = True):
+    """A = L^-1 Kuf / sigma_scale (None unless ``with_a``), A A^T and
+    optionally A @ W.
+
+    Over column chunks (:func:`chunk_width`): A A^T and A W summed over the
+    chunks in order, A assembled from its chunks in ``a_dtype`` (default
+    X's; one pass keeps X's); ``remat`` recomputes each chunk in the
+    backward instead of storing its Kuf, e and A.  The last chunk is
+    narrower where the width does not divide N.  A consumer that needs A in
+    X's dtype after a chunked build reads it from :func:`kuf_weighted`."""
+    N, M = X.shape[0], params.num_inducing
+    width = chunk_width(N, M, chunk_size)
+    a_dtype = X.dtype if width is None else (a_dtype or X.dtype)
+
+    def terms(xc, wc):
+        kuf = _kuf(params.kernel, params.inducing_Z.value, xc)
+        a = _solve_lower(L, kuf) / sigma_scale
+        return (a.to(a_dtype) if with_a else None, a @ a.T,
+                None if wc is None else a @ wc)
+
+    if width is None:
+        return terms(X, W)
+    parts, AAT, AW = [], None, None
+    for c0, c1 in _chunks(N, width):
+        wc = None if W is None else W[c0:c1]
+        if remat and torch.is_grad_enabled():
+            a, aat, aw = checkpoint(terms, X[c0:c1], wc, use_reentrant=False)
+        else:
+            a, aat, aw = terms(X[c0:c1], wc)
+        parts.append(a)
+        AAT = aat if AAT is None else AAT + aat
+        if W is not None:
+            AW = aw if AW is None else AW + aw
+    # column-major, as the one pass's triangular solve leaves A: the fp32
+    # products on it (the preconditioner's) then round as they do there
+    A = torch.cat([a.mT for a in parts]).mT if with_a else None
     return A, AAT, AW
 
 
-def common_terms(params: SGPRParams, X, jitter: float = None) -> CommonTerms:
-    """Reference semantics: cglb/backend/tensorflow/models.py:58-75."""
+def kuf_weighted(params: SGPRParams, L, X, W, sigma_scale,
+                 chunk_size: int = None) -> torch.Tensor:
+    """A @ W = L^-1 (Kuf @ W) / sigma_scale by column chunks of Kuf (sums
+    in chunk order), then one [M, D] solve: no [M, N] beyond a chunk's."""
+    N, M = X.shape[0], params.num_inducing
+    Z = params.inducing_Z.value
+    width = chunk_width(N, M, chunk_size) or N
+    U = None
+    for c0, c1 in _chunks(N, width):
+        u = _kuf(params.kernel, Z, X[c0:c1]) @ W[c0:c1]
+        U = u if U is None else U + u
+    return _solve_lower(L, U) / sigma_scale
+
+
+def common_terms(params: SGPRParams, X, jitter: float = None,
+                 chunk_size: int = None, remat: bool = False,
+                 a_dtype=None) -> CommonTerms:
+    """Reference semantics: cglb/backend/tensorflow/models.py:58-75.
+    ``chunk_size``, ``remat`` and ``a_dtype`` as in :func:`_kuf_terms`."""
     jitter = _jitter(jitter)
     M = params.num_inducing
     sigma = torch.sqrt(params.noise_variance.value)
     L = _kuu_chol(params, jitter)
-    A, AAT, _ = _kuf_terms(params, L, X, sigma)
+    A, AAT, _ = _kuf_terms(params, L, X, sigma, chunk_size=chunk_size,
+                           remat=remat, a_dtype=a_dtype)
     B = AAT + torch.eye(M, dtype=X.dtype, device=X.device)
     LB = _chol.cholesky(B)
     return CommonTerms(A=A, AAT=AAT, B=B, LB=LB, L=L)
@@ -111,7 +201,8 @@ def elbo(params: SGPRParams, X, Y, jitter: float = None) -> torch.Tensor:
     sigma_sq = params.noise_variance.value
     sigma = torch.sqrt(sigma_sq)
     L = _kuu_chol(params, jitter)
-    _, AAT, Aerr = _kuf_terms(params, L, X, sigma, W=err)
+    _, AAT, Aerr = _kuf_terms(params, L, X, sigma, W=err, remat=True,
+                              with_a=False)
     LB = _chol.cholesky(AAT + torch.eye(M, dtype=X.dtype, device=X.device))
     c = _solve_lower(LB, Aerr) / sigma
 
@@ -176,7 +267,8 @@ def upper_bound(params: SGPRParams, X, Y, jitter: float = None
     err = Y - mean_apply(params.mean, X)
     one = torch.ones((), dtype=X.dtype, device=X.device)
     L = _kuu_chol(params, jitter)
-    _, AAT0, A0err = _kuf_terms(params, L, X, one, W=err)
+    _, AAT0, A0err = _kuf_terms(params, L, X, one, W=err, remat=True,
+                                with_a=False)
     LB = _chol.cholesky(eye_m + AAT0 / sigma_sq)
     # trace slack tr(Kff) - tr(Qff) >= 0, clamped against cancellation
     cslack = torch.clamp(
@@ -207,7 +299,7 @@ def predict_prepare(params: SGPRParams, X, Y, jitter: float = None
     sigma = torch.sqrt(params.noise_variance.value)
     M = params.num_inducing
     L = _kuu_chol(params, jitter)
-    _, AAT, Aerr = _kuf_terms(params, L, X, sigma, W=err)
+    _, AAT, Aerr = _kuf_terms(params, L, X, sigma, W=err, with_a=False)
     LB = _chol.cholesky(AAT + torch.eye(M, dtype=X.dtype, device=X.device))
     c = _solve_lower(LB, Aerr) / sigma
     return SGPRPredictCache(c=c, L=L, LB=LB)

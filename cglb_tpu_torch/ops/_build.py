@@ -41,7 +41,7 @@ _SIGNATURES = {
     "cglb_matvec_geometry": [_I32, _I32, _I32, _I32, _I32, _I32,
                              ctypes.POINTER(_I32)],
     "cglb_matvec": [_P, _I64, _P, _I64, _P, _I64, _I32, _I32, _I32, _I32,
-                    _I32, _I32, _P, _P, _P],
+                    _I32, _I32, _I64, _I32, _I64, _P, _P, _P],
     "cglb_ls_grad": [_P, _I64, _P, _I64, _P, _I64, _P, _I64, _I32, _I32,
                      _I32, _I32, _I32, _I32, _P, _P],
     "cglb_kuf_f64": [_P, _I64, _P, _I64, _I32, _I32, _P, _P, _P, _P],

@@ -19,7 +19,9 @@ card's SM count and the kernel's resident blocks per SM) and sums the
 segments' partials in a fixed order (:func:`reduce_segments`), so that the
 grid fills the card and the result is deterministic.  When the rows and
 columns are the same :class:`Prepared` object (the training operator, its
-gradient, the prediction CG) the kernels take each unordered pair once.
+gradient, the prediction CG) the kernels take each unordered pair once;
+kernel 1 then launches its column blocks in slabs (:func:`plan_slabs`) so
+that its per-block row sums stay within ``ROW_PARTIAL_BYTES`` at any N.
 
 Beside each is its plain PyTorch version in the working dtype
 (:func:`matvec_unit_plain`, :func:`ls_grad_unit_plain`).  The dispatchers
@@ -49,7 +51,8 @@ __all__ = ["Prepared", "kernel_matvec", "kernel_cross_matvec",
            "make_streaming_operator", "make_streaming_operator_pair",
            "matvec_unit", "matvec_unit_plain", "ls_grad_unit",
            "ls_grad_unit_plain", "launch_matvec", "launch_ls_grad",
-           "Geometry", "plan_segments", "reduce_segments", "MAX_BATCH"]
+           "Geometry", "Slab", "plan_segments", "plan_slabs",
+           "reduce_segments", "MAX_BATCH", "ROW_PARTIAL_BYTES"]
 
 # rows of p one launch takes (the widest instantiation); wider batches are
 # launched in groups
@@ -60,6 +63,13 @@ _PLAIN_CHUNK = 4096
 # row segments of one launch at most: bounds the partials (kernel 1 writes
 # segments x B x Nc of them)
 _MAX_SEGMENTS = 32
+# bytes of kernel 1's fp32 row sums one symmetric launch may write (one
+# float per column block and row): the column blocks go out in slabs that
+# fit it, reduced one after another.  Every block fits one slab up to the
+# kin40k shapes (26800 rows at B = 8: 180 MB), so those launches are
+# unchanged; at houseelectric's 1,373,017 rows a slab takes 97 blocks at
+# B = 1 where all 21,454 would take 117.8 GB.
+ROW_PARTIAL_BYTES = 1 << 29
 
 
 def _dpad(d: int) -> int:
@@ -179,10 +189,12 @@ class Geometry(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def plan_segments(ni: int, nj: int, geo: Geometry,
-                  symmetric: bool = False) -> Tuple[int, int]:
-    """(segments, seg_rows) for ni rows and nj columns: the grid is
-    ceil(nj / block_cols) column blocks by ``segments`` row segments of
-    ``seg_rows`` rows (a multiple of stage_rows; the last may be shorter).
+                  symmetric: bool = False,
+                  blocks: Tuple[int, int] = None) -> Tuple[int, int]:
+    """(segments, seg_rows) for ni rows and nj columns: the grid is the
+    column blocks ``blocks`` = [cb0, cb1) (default: all ceil(nj /
+    block_cols) of them) by ``segments`` row segments of ``seg_rows`` rows
+    (a multiple of stage_rows; the last may be shorter).
 
     Picks the split with the least estimated time, counted in staged tiles
     per slot: whole waves of the blocks that have rows (symmetric: column
@@ -190,7 +202,7 @@ def plan_segments(ni: int, nj: int, geo: Geometry,
     segment's tiles plus about one tile of fixed cost (pipeline fill, the
     block's reduction), at most ``_MAX_SEGMENTS`` segments, the fewest
     segments among equals."""
-    col_blocks = -(-nj // geo.block_cols)
+    cb0, cb1 = blocks or (0, -(-nj // geo.block_cols))
     tiles = -(-ni // geo.stage_rows)
     best = None
     for s in range(1, min(tiles, _MAX_SEGMENTS) + 1):
@@ -199,13 +211,52 @@ def plan_segments(ni: int, nj: int, geo: Geometry,
         seg_rows = per * geo.stage_rows
         if symmetric:  # column block c has rows below min(ni, c1) only
             active = sum(-(-min(ni, (c + 1) * geo.block_cols) // seg_rows)
-                         for c in range(col_blocks))
+                         for c in range(cb0, cb1))
         else:
-            active = col_blocks * segments
+            active = (cb1 - cb0) * segments
         cost = -(-active // geo.slots) * (per + 1)
         if best is None or cost < best[0]:
             best = (cost, segments, seg_rows)
     return best[1], best[2]
+
+
+class Slab(NamedTuple):
+    """One launch of kernel 1's symmetric path: column blocks [cb0, cb1)
+    against rows [0, row_end), row_end = min(n, cb1 * block_cols), the rows
+    those blocks take; its row sums are [cb1 - cb0, B, row_end] fp32."""
+    cb0: int
+    cb1: int
+    row_end: int
+    segments: int
+    seg_rows: int
+
+
+def _slab_bytes(cb0: int, cb1: int, n: int, block_cols: int,
+                bp: int) -> int:
+    return (cb1 - cb0) * bp * min(n, cb1 * block_cols) * 4
+
+
+@functools.lru_cache(maxsize=64)
+def plan_slabs(n: int, geo: Geometry, bp: int,
+               budget: int) -> Tuple[Slab, ...]:
+    """Kernel 1's symmetric launches for n points at batch width bp: the
+    column blocks in order, each slab the most that keeps its row sums
+    within ``budget`` bytes (at least one block), with its row split."""
+    blocks = -(-n // geo.block_cols)
+    slabs, cb0 = [], 0
+    while cb0 < blocks:
+        lo, hi = cb0 + 1, blocks  # the largest cb1 within the budget
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            if _slab_bytes(cb0, mid, n, geo.block_cols, bp) <= budget:
+                lo = mid
+            else:
+                hi = mid - 1
+        row_end = min(n, lo * geo.block_cols)
+        slabs.append(Slab(cb0, lo, row_end, *plan_segments(
+            row_end, n, geo, True, (cb0, lo))))
+        cb0 = lo
+    return tuple(slabs)
 
 
 def reduce_segments(partials: torch.Tensor, dtype=None) -> torch.Tensor:
@@ -286,7 +337,6 @@ def launch_matvec(rows: Prepared, cols: Prepared, p: torch.Tensor,
 def _launch_matvec_group(rows: Prepared, cols: Prepared, p: torch.Tensor,
                          accurate: bool) -> torch.Tensor:
     xr, xc = rows.packed(), cols.packed()
-    symmetric = rows is cols
     B = p.shape[0]
     bp = _bpad(B)
     ldp = -(-rows.n // 4) * 4
@@ -294,25 +344,47 @@ def _launch_matvec_group(rows: Prepared, cols: Prepared, p: torch.Tensor,
     _same_device(xr, xc, pf)
     lib = _build.load()
     dp = xr.shape[1]
-    geo = _geometry(lib, rows.family, dp, bp, accurate, False, symmetric,
-                    p.device)
-    segments, seg_rows = plan_segments(rows.n, cols.n, geo, symmetric)
     acc = torch.float64 if accurate else torch.float32
-    part = torch.empty(segments, bp, cols.n, device=p.device, dtype=acc)
-    row_part = (torch.empty(-(-cols.n // geo.block_cols), bp, rows.n,
-                            device=p.device, dtype=torch.float32)
-                if symmetric else None)
-    rc = lib.cglb_matvec(
-        xr.data_ptr(), rows.n, xc.data_ptr(), cols.n, pf.data_ptr(), ldp, bp,
-        dp, _FAMILY_CODE[rows.family], int(accurate), seg_rows, segments,
-        part.data_ptr(), None if row_part is None else row_part.data_ptr(),
-        torch.cuda.current_stream(p.device).cuda_stream)
-    _build.check(rc, "cglb_matvec")
-    launch_matvec.launches += 1
-    launch_matvec.accurate_launches += int(accurate)
-    out = reduce_segments(part)
-    if row_part is not None:
-        out = out + reduce_segments(row_part, acc)
+    geo = _geometry(lib, rows.family, dp, bp, accurate, False, rows is cols,
+                    p.device)
+
+    def launch(cb0, row_end, ncols, segments, seg_rows, row_part):
+        part = torch.empty(segments, bp, ncols, device=p.device, dtype=acc)
+        rc = lib.cglb_matvec(
+            xr.data_ptr(), rows.n, xc.data_ptr(), cols.n, pf.data_ptr(), ldp,
+            bp, dp, _FAMILY_CODE[rows.family], int(accurate), seg_rows,
+            segments, row_end, cb0, ncols, part.data_ptr(),
+            None if row_part is None else row_part.data_ptr(),
+            torch.cuda.current_stream(p.device).cuda_stream)
+        _build.check(rc, "cglb_matvec")
+        launch_matvec.launches += 1
+        launch_matvec.accurate_launches += int(accurate)
+        return part
+
+    if rows is not cols:
+        segments, seg_rows = plan_segments(rows.n, cols.n, geo)
+        return reduce_segments(launch(0, rows.n, cols.n, segments, seg_rows,
+                                      None))[:B]
+    # symmetric: slab by slab, each slab's column sums reduced into its
+    # columns of out, then its row sums added to the rows it took, in slab
+    # order (a slab's rows end where its columns end, so a later slab's
+    # columns are untouched until it writes them)
+    n, bc = rows.n, geo.block_cols
+    slabs = plan_slabs(n, geo, bp, ROW_PARTIAL_BYTES)
+    out = None
+    for slab in slabs:
+        j0, j1 = slab.cb0 * bc, min(n, slab.cb1 * bc)
+        row_part = torch.empty(slab.cb1 - slab.cb0, bp, slab.row_end,
+                               device=p.device, dtype=torch.float32)
+        part = launch(slab.cb0, slab.row_end, j1 - j0, slab.segments,
+                      slab.seg_rows, row_part)
+        if len(slabs) == 1:  # its column sums are all of out
+            out = reduce_segments(part)
+        else:
+            if out is None:
+                out = torch.empty(bp, n, device=p.device, dtype=acc)
+            torch.sum(part, dim=0, out=out[:, j0:j1])
+        out[:, :slab.row_end] += reduce_segments(row_part, acc)
     return out[:B]
 
 

@@ -26,7 +26,9 @@ builds a new pytree per evaluation instead.  The CG warm start is threaded
 through every path as carry state and is updated on every evaluation,
 line-search probes included; ``lbfgs_minimize`` alone holds it fixed inside
 one iteration's line search, as the JAX function does.  The dispatch-bounded
-Adam is not ported (ROADMAP.md).
+Adam (``bounded_adam_minimize``, :405-433) is ``adam_minimize`` with its
+per-step CG stats logged: the port's CG returns to the host every iteration,
+so its step is already bounded.
 """
 
 from __future__ import annotations
@@ -311,10 +313,14 @@ def adam_minimize(loss_fn: LossFn, params: torch.nn.Module, state,
                   num_steps: int, learning_rate: float = 0.01,
                   logger: Optional[Logger] = None,
                   sync_fn: Callable[[Any, Any], None] = None,
-                  loss_args: tuple = ()) -> OptimizeResult:
+                  loss_args: tuple = (),
+                  feval_stats_fn: Callable[[Any], dict] = None
+                  ) -> OptimizeResult:
     """``num_steps`` Adam steps on the trainable raw parameters of
     ``params`` (updated in place).  loss_args: extra positional arguments
-    of ``loss_fn`` (the data slice of the staged schedule)."""
+    of ``loss_fn`` (the data slice of the staged schedule).
+    feval_stats_fn: stats of each step's carry for the logger's per-feval
+    log (the CLI's --dispatch-bound logs them)."""
     trainable = [p for p in params.parameters() if p.requires_grad]
     opt = torch.optim.Adam(trainable, lr=learning_rate, betas=(0.9, 0.999),
                            eps=1e-8)
@@ -328,6 +334,8 @@ def adam_minimize(loss_fn: LossFn, params: torch.nn.Module, state,
         loss.backward()
         opt.step()
         if logger is not None:
+            if feval_stats_fn is not None:
+                logger.log_for_feval(**feval_stats_fn(state))
             if sync_fn is not None:
                 sync_fn(params, state)
             logger(i)

@@ -56,7 +56,27 @@ Phases, each of which fails the run (non-zero exit) on error:
     against the dense mean's, and both beside the TPU run's;
 11. 3 iterations each of ``-o lbfgs`` and ``-o lbfgs_native`` on cglb
     (M 2048) and 2 of ``-o staged gpr -m gpr`` (dense, 26800 rows), with
-    peak device memory.
+    peak device memory;
+12. kernel 1's symmetric path in slabs of column blocks: at N 26800 with
+    its row-sum budget cut to force at least 3 slabs, against the plain
+    version in both tiers, repeats bitwise equal; at houseelectric's
+    N_train 1,373,017, D 11, B 1 against the general path (also a kernel:
+    the plain version is O(N^2) too slow there), with the times of kernels
+    1-3 at that size beside their bounds (counted at D 11);
+13. the chunked common terms at the main path's shapes: the CGLB loss and
+    every gradient with 4096-column chunks, each recomputed in the
+    backward, against the one pass, at one fixed v, to 1e-10 relative,
+    with the model's fp32 preconditioner (A cast a chunk at a time) and
+    with an fp64 one, each build also against its own repeat;
+14. houseelectric at full width: ``train -n 3 -d Wilson_houseelectric -o
+    adam_0.01 cglb -m cglb -k Matern32 -i cv -M 1024`` in fp64 with
+    ``--max-cg-iters 4`` (the cap of the JAX record runs/largen-1m-6step)
+    and no metric evaluation inside the 3 steps, on the repository's
+    stand-in data at the real shape (N_train 1,373,017, D 11): the chunk
+    width and count, per Adam step its seconds, CG steps, kernel launches
+    and peak allocated bytes (at most 40 GiB), the loss lower after 3 steps
+    than at the start, elbo and cg_lower_bound at most the upper bound,
+    finite test rmse and nlpd.
 
 With ``--compare TREE ...`` no phase runs.  Each tree (a directory holding
 a ``cglb_tpu_torch`` package, such as an older commit unpacked with ``git
@@ -115,6 +135,18 @@ SCIPY4_ARGS = _HEAD + ["-n", "2000"] + _DATA + ["-o", "scipy4", "cglb", "-m",
 SCIPY4_GUARD_S = 420.0
 # the TPU run runs/kin40k-2000-scipy4-r4: loss, test rmse, test nlpd
 REFERENCE = {"loss": 19274.1, "test/rmse": 0.4620, "test/nlpd": 0.6470}
+# houseelectric (experiments/datasets.py: the stand-in at the real shape, N
+# 2,049,280, D 11; 1,373,017 training rows), M 1024 as scripts/large_n_aot.py
+# and BASELINE.md's houseelectric row, fp64.  Cut: 3 Adam steps, CG capped
+# at 4 steps (runs/largen-1m-6step's cap), no metric evaluation inside the
+# run (the final one writes results.json).
+HOUSE_N, HOUSE_D, HOUSE_M = 1_373_017, 11, 1024
+HOUSE_ARGS = ["-t", "fp64", "-s", "0", "--max-cg-iters", "4", "train", "-n",
+              "3", "--holdout-interval", "-1", "-d", "Wilson_houseelectric",
+              "-o", "adam_0.01", "cglb", "-m", "cglb", "-k", "Matern32",
+              "-i", "cv", "-M", str(HOUSE_M)]
+HOUSE_PEAK_GIB = 40.0  # allocated by one Adam step (loss, gradient, update)
+CHUNKED_TOL = 1e-10  # chunked against one pass, relative to max |one pass|
 # the exact-GP arm: the command of the TPU run below, cut from 500 steps
 EXACTGP_ARGS = ["-t", "fp64", "-s", "0", "train", "-n", "20",
                 "--holdout-interval", "10"] + _DATA + [
@@ -550,8 +582,19 @@ def _delta(after: dict, before: dict) -> dict:
     return {k: after[k] - before[k] for k in after}
 
 
+def _mark() -> dict:
+    """Seconds, kernel launches and peak allocated bytes since the last
+    mark (the peak is reset here)."""
+    torch.cuda.synchronize()
+    out = {"t": time.perf_counter(), "counts": _read_counts(),
+           "peak": torch.cuda.max_memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    return out
+
+
 @contextlib.contextmanager
-def _watched(seen: dict, guard_s: float = None, initial_loss: bool = False):
+def _watched(seen: dict, guard_s: float = None, initial_loss: bool = False,
+             steps: bool = False):
     """Watch the CLI's training run from outside: ``seen`` gets the model,
     the warm start the optimizer began from, the loss at the initial
     parameters (optional; its launches are recorded to be taken off), the
@@ -559,7 +602,10 @@ def _watched(seen: dict, guard_s: float = None, initial_loss: bool = False):
     without the logger's metric evaluations and the launches of those, and a
     tally of what ran inside the forward of the tolerance-level loss.  With
     ``guard_s`` an objective evaluation that starts later than that many
-    seconds after the optimizer did fails the script."""
+    seconds after the optimizer did fails the script.  With ``steps`` a
+    :func:`_mark` at the start of every objective evaluation and at the end
+    of the optimizer, with each evaluation's loss and CG steps: from one
+    mark to the next is one Adam step (loss, gradient, update)."""
     from cglb_tpu_torch import backend as _backend
     from cglb_tpu_torch.utils import training as _training
 
@@ -574,8 +620,13 @@ def _watched(seen: dict, guard_s: float = None, initial_loss: bool = False):
                 if guard_s is not None:
                     require(time.perf_counter() - t0 <= guard_s,
                             f"the run exceeded its {guard_s:g} s guard")
+                if steps:
+                    seen["marks"].append(_mark())
                 before = _read_counts()
                 out = fn(*args)
+                if steps:
+                    seen["step_losses"].append(float(out[0]))
+                    seen["step_cg"].append(int(out[1].cg_steps))
                 if tally is not None:
                     d = _delta(_read_counts(), before)
                     tally["calls"] += 1
@@ -616,9 +667,12 @@ def _watched(seen: dict, guard_s: float = None, initial_loss: bool = False):
                                      "cg_steps"), 0)
         model.loss_fn = guarded(model.loss_fn, t0)
         model.loss_fn_tol = guarded(model.loss_fn_tol, t0, seen["tol"])
+        seen.update(marks=[], step_losses=[], step_cg=[])
         before = _read_counts()
         res = real_optimize(cls, model, datasets, num_steps, logger, *args,
                             **kw)
+        if steps:
+            seen["marks"].append(_mark())
         torch.cuda.synchronize()
         seen["optimize_s"] = time.perf_counter() - t0
         seen["train_s"] = logger.timer.get_elapsed_time()
@@ -660,10 +714,11 @@ def run_cli(tail, logdir: str, **watch) -> dict:
     if "initial_loss_launches" in seen:
         launches = _delta(launches, seen["initial_loss_launches"])
     seen["launches"] = launches
-    seen["peak_bytes"] = torch.cuda.max_memory_allocated()
+    seen["peak_bytes"] = max([torch.cuda.max_memory_allocated()]
+                             + [m["peak"] for m in seen["marks"]])
     seen["res"] = load_json(Path(logdir, "results.json"))
     seen["logs"] = load_json(Path(logdir, "logs.json"))
-    require(seen["res"]["data"] == "synthetic", "kin40k stand-in expected")
+    require(seen["res"]["data"] == "synthetic", "synthetic stand-in expected")
     return seen
 
 
@@ -734,18 +789,9 @@ def warm_steps() -> dict:
     in a synchronize (median of 5, after one), then over 3 more steps under
     torch.profiler the device time of all kernels and of kernels 1-3, and
     the launches of kernels 1-3, per step."""
-    from cglb_tpu_torch import config as _config
-    from cglb_tpu_torch.backend import Torch
-    from cglb_tpu_torch.configs import (CGLBConfig, InducingVariableConfig,
-                                        Matern32Config)
-    from cglb_tpu_torch.experiments.datasets import get_dataset
     from cglb_tpu_torch.utils.training import adam_minimize
 
-    _config.set_default_float("fp64")
-    _config.set_default_jitter("fp64")
-    model = Torch(device="cuda").create_model(
-        CGLBConfig(Matern32Config(), InducingVariableConfig(M)),
-        get_dataset("Wilson_kin40k", split=0).train, seed=0)
+    model = _kin40k_model()
     state = model.carry_in()
 
     def step():
@@ -1327,6 +1373,276 @@ def phase_optimizers() -> None:
 
 
 # --------------------------------------------------------------------------
+# phases 12-14: houseelectric scale
+# --------------------------------------------------------------------------
+
+
+def once_ms(fn):
+    """(result, milliseconds) of one call between two CUDA events: the
+    calls timed this way take seconds."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _launches_of(fn):
+    """(fn(), kernel 1 launches it made)."""
+    from cglb_tpu_torch.ops import matvec as _mv
+
+    before = _mv.launch_matvec.launches
+    out = fn()
+    return out, _mv.launch_matvec.launches - before
+
+
+def phase_slabs(results: dict, card: str) -> None:
+    from cglb_tpu_torch.models import sgpr as _sgpr
+    from cglb_tpu_torch.ops import kuf as _kuf
+    from cglb_tpu_torch.ops import matvec as _mv
+
+    family = "mat32"
+    X, _, _, p, _, ls, _ = kernel_inputs()
+    rows = _mv.Prepared(X, ls, family)
+    plain = _mv.matvec_unit_plain(rows.xg, rows.xg, p, family)
+    one_slab = _mv.launch_matvec(rows, rows, p, True)
+    budget = _mv.ROW_PARTIAL_BYTES
+    _mv.ROW_PARTIAL_BYTES = 4 * N * 50  # 50 column blocks' row sums
+    try:
+        acc, slabs = _launches_of(lambda: _mv.launch_matvec(rows, rows, p,
+                                                            True))
+        cg = _mv.launch_matvec(rows, rows, p, False)
+        same = (torch.equal(acc, _mv.launch_matvec(rows, rows, p, True))
+                and torch.equal(cg, _mv.launch_matvec(rows, rows, p, False)))
+    finally:
+        _mv.ROW_PARTIAL_BYTES = budget
+    err, _ = rel_err(acc, plain)
+    cg_err, _ = rel_err(cg, plain)
+    vs_one, _ = rel_err(acc, one_slab)
+    print(f"[slabs] {family} symmetric {N}^2 in {slabs} slabs: accurate rel "
+          f"err {err:.3e} (bound {TOL['matvec_accurate']:g}), CG tier "
+          f"{cg_err:.3e} (bound {TOL['matvec_cg']:g}), against one slab "
+          f"{vs_one:.3e}; repeats bitwise equal {same}", flush=True)
+    require(slabs >= 3, "slabs: fewer than 3 slabs were forced")
+    require(err <= TOL["matvec_accurate"], "slabs: accurate tier")
+    require(cg_err <= TOL["matvec_cg"], "slabs: CG tier")
+    require(same, "slabs: repeat launches differ")
+    del X, rows, plain, one_slab, acc, cg
+    torch.cuda.empty_cache()
+
+    # houseelectric's training size, coordinates padded to DP 32
+    rng = np.random.default_rng(0)
+    dev = torch.device("cuda")
+    Xh = torch.as_tensor(rng.normal(size=(HOUSE_N, HOUSE_D)), device=dev)
+    lsh = torch.as_tensor(rng.uniform(0.5, 2.0, size=HOUSE_D), device=dev)
+    ph = torch.as_tensor(rng.normal(size=(1, HOUSE_N)), device=dev)
+    gh = torch.as_tensor(rng.normal(size=(1, HOUSE_N)), device=dev)
+    rows = _mv.Prepared(Xh, lsh, family)
+    rows2 = _mv.Prepared(Xh, lsh, family)
+    torch.cuda.reset_peak_memory_stats()
+    # the first calls also plan the slabs and segments on the host (cached):
+    # the timed calls are the repeats
+    sym, slabs = _launches_of(lambda: _mv.launch_matvec(rows, rows, ph, True))
+    peak = torch.cuda.max_memory_allocated()
+    again, ms = once_ms(lambda: _mv.launch_matvec(rows, rows, ph, True))
+    sym_cg = _mv.launch_matvec(rows, rows, ph, False)
+    cg_again, cg_ms = once_ms(lambda: _mv.launch_matvec(rows, rows, ph,
+                                                        False))
+    same = torch.equal(sym, again) and torch.equal(sym_cg, cg_again)
+    general, general_ms = once_ms(
+        lambda: _mv.launch_matvec(rows, rows2, ph, True))
+    err, abs_err = rel_err(sym, general)
+    cg_err, _ = rel_err(sym_cg, general)
+    _mv.launch_ls_grad(rows, rows, ph, gh)
+    _, ls_ms = once_ms(lambda: _mv.launch_ls_grad(rows, rows, ph, gh))
+    width = _sgpr.chunk_width(HOUSE_N, HOUSE_M)
+    scale = math.sqrt(_mv.GAMMA[family])
+    zg = torch.as_tensor(rng.normal(size=(HOUSE_M, HOUSE_D)),
+                         device=dev) * (scale / lsh)
+    xg = Xh[:width] * (scale / lsh)
+    var = torch.as_tensor(1.7, dtype=torch.float64, device=dev)
+    kuf_ms = cuda_ms(lambda: _kuf.launch_kuf(zg, xg, var, family), 10)
+    bounds = {
+        "accurate": matvec_bound(HOUSE_N, HOUSE_N, HOUSE_D, 1, True, True),
+        "cg": matvec_bound(HOUSE_N, HOUSE_N, HOUSE_D, 1, False, True),
+        "ls_grad": ls_grad_bound(HOUSE_N, HOUSE_N, HOUSE_D, 1, True),
+        "kuf": kuf_bound(HOUSE_M, width, HOUSE_D)}
+    print(f"[slabs] {family} symmetric {HOUSE_N}^2, D {HOUSE_D} (DP 32), "
+          f"B 1, in {slabs} slabs: accurate rel err {err:.3e} against the "
+          f"general path (bound {TOL['matvec_accurate']:g}), CG tier "
+          f"{cg_err:.3e} (bound {TOL['matvec_cg']:g}); repeat bitwise equal "
+          f"{same}; peak allocated {peak / 2 ** 30:.2f} GiB; general path "
+          f"{general_ms:.1f} ms ({card})", flush=True)
+    show(f"{family} streaming_matvec {HOUSE_N}^2 accurate", ms,
+         bounds["accurate"])
+    show(f"{family} streaming_matvec {HOUSE_N}^2 CG tier", cg_ms,
+         bounds["cg"])
+    show(f"{family} ls_grad {HOUSE_N}^2", ls_ms, bounds["ls_grad"])
+    show(f"{family} kuf {HOUSE_M}x{width} (one chunk)", kuf_ms,
+         bounds["kuf"])
+    require(err <= TOL["matvec_accurate"], "houseelectric matvec accurate")
+    require(cg_err <= TOL["matvec_cg"], "houseelectric matvec CG tier")
+    require(same, "houseelectric matvec repeat launches differ")
+    results["streaming_matvec"].update({
+        "ms_houseelectric": ms, "ms_cg_tier_houseelectric": cg_ms,
+        "bound_ms_houseelectric": bounds["accurate"][0],
+        "bound_ms_cg_tier_houseelectric": bounds["cg"][0],
+        "max_abs_err_houseelectric": abs_err, "slabs_houseelectric": slabs,
+        "general_ms_houseelectric": general_ms})
+    results["ls_grad"].update({"ms_houseelectric": ls_ms,
+                               "bound_ms_houseelectric": bounds["ls_grad"][0]})
+    results["kuf"].update({"ms_houseelectric_chunk": kuf_ms,
+                           "bound_ms_houseelectric_chunk": bounds["kuf"][0],
+                           "chunk_width": width})
+    del Xh, rows, rows2, sym, again, sym_cg, cg_again, general
+    torch.cuda.empty_cache()
+
+
+def _kin40k_model():
+    """The main path's CGLB model, built as the CLI builds it."""
+    from cglb_tpu_torch import config as _config
+    from cglb_tpu_torch.backend import Torch
+    from cglb_tpu_torch.configs import (CGLBConfig, InducingVariableConfig,
+                                        Matern32Config)
+    from cglb_tpu_torch.experiments.datasets import get_dataset
+
+    _config.set_default_float("fp64")
+    _config.set_default_jitter("fp64")
+    return Torch(device="cuda").create_model(
+        CGLBConfig(Matern32Config(), InducingVariableConfig(M)),
+        get_dataset("Wilson_kin40k", split=0).train, seed=0)
+
+
+def phase_chunked(card: str) -> None:
+    from cglb_tpu_torch.models import cglb as _cglb
+    from cglb_tpu_torch.ops import matvec as _mv
+
+    model = _kin40k_model()
+    params, (X, Y), cfg = model.params, model.data, model.run_cfg
+
+    def operator():
+        return _mv.make_streaming_operator(params.kernel, X,
+                                           params.noise_variance.value)
+
+    with torch.no_grad():  # one v for every evaluation, from a CG solve
+        _, aux = _cglb.loss(params, X, Y, model.v0,
+                            dataclasses.replace(cfg, max_error=1e-3),
+                            matvec=operator())
+
+    def evaluate(fixed, **kw):
+        params.zero_grad(set_to_none=True)
+        before = _read_counts()
+        loss, _ = _cglb.loss(params, X, Y, aux.v, fixed, matvec=operator(),
+                             **kw)
+        loss.backward()
+        return (float(loss.detach()), {name: prm.raw.grad.clone()
+                              for name, prm in params.named_params()},
+                _delta(_read_counts(), before))
+
+    # the model's own fp32 preconditioner (chunked: A cast to fp32 a chunk
+    # inside the recompute, its cotangent back through that cast), and fp64;
+    # each build evaluated twice, to tell reordering from run-to-run spread
+    chunked_kw = dict(chunk_size=4096, remat_common_terms=True)
+    for dtype in (cfg.precond_dtype, "float64"):
+        fixed = dataclasses.replace(cfg, vzero=True, precond_dtype=dtype)
+        one, one_grads, _ = evaluate(fixed)
+        chunked, grads, launches = evaluate(fixed, **chunked_kw)
+        errs = {"loss": abs(chunked - one) / abs(one)}
+        for name, g in grads.items():
+            errs[name] = rel_err(g, one_grads[name])[0]
+        repeats = {}
+        for label, kw, first in (("one pass", {}, one_grads),
+                                 ("chunked", chunked_kw, grads)):
+            _, again, _ = evaluate(fixed, **kw)
+            repeats[label] = max(rel_err(g, first[name])[0]
+                                 for name, g in again.items())
+        print(f"[chunked] kin40k CGLB loss and gradients, {dtype} "
+              f"preconditioner, chunks of 4096 columns recomputed in the "
+              f"backward, against one pass: "
+              + json.dumps({k: f"{v:.3e}" for k, v in errs.items()})
+              + f" (bound {CHUNKED_TOL:g}); each against its own repeat: "
+              + json.dumps({k: f"{v:.3e}" for k, v in repeats.items()})
+              + f"; launches {launches} ({card})", flush=True)
+        require(max(errs.values()) <= CHUNKED_TOL,
+                f"chunked against one pass ({dtype} preconditioner)")
+        require(launches["kuf"] == 2 * -(-N // 4096),
+                "chunked: kernel 3 not launched once a chunk and again in "
+                "the backward")
+    del model, params, X, Y
+    torch.cuda.empty_cache()
+
+
+def phase_houseelectric(results: dict, card: str) -> None:
+    from cglb_tpu_torch.models import sgpr as _sgpr
+
+    torch.cuda.empty_cache()
+    width = _sgpr.chunk_width(HOUSE_N, HOUSE_M)
+    chunks = -(-HOUSE_N // width)
+    with tempfile.TemporaryDirectory() as logdir:
+        out = run_cli(HOUSE_ARGS, logdir, steps=True)
+    res, marks, losses = out["res"], out["marks"], out["step_losses"]
+    require(out["model"].data[0].shape == (HOUSE_N, HOUSE_D),
+            "houseelectric: training data of the wrong shape")
+    require(len(marks) == 4 and len(losses) == 3,
+            "houseelectric: not 3 objective evaluations")
+    steps = []
+    for a, b in zip(marks, marks[1:]):
+        steps.append({"s": b["t"] - a["t"],
+                      "launches": _delta(b["counts"], a["counts"]),
+                      "peak_gib": b["peak"] / 2 ** 30})
+    slabs = results["streaming_matvec"]["slabs_houseelectric"]
+    metrics = finite_metrics(res, "houseelectric")
+    print(f"[houseelectric] CLI run ({' '.join(HOUSE_ARGS)}) at N_train "
+          f"{HOUSE_N}, D {HOUSE_D}, M {HOUSE_M}: chunks of {width} columns, "
+          f"{chunks} chunks; {out['wall_s']:.2f} s wall, optimizer "
+          f"{out['optimize_s']:.2f} s ({card})", flush=True)
+    for i, st in enumerate(steps):
+        k1 = st["launches"]["streaming_matvec"]
+        print(f"[houseelectric] Adam step {i}: {st['s']:.3f} s, loss "
+              f"{losses[i]:.4f}, CG steps {out['step_cg'][i]}, launches "
+              f"{st['launches']} (kernel 1: {k1 / slabs:g} matvecs of "
+              f"{slabs} slabs), peak allocated {st['peak_gib']:.2f} GiB",
+              flush=True)
+    print(f"[houseelectric] results.json loss {res['loss']:.4f}, elbo "
+          f"{res['elbo']:.4f}, cg_lower_bound {res['cg_lower_bound']:.4f}, "
+          f"upper {res['titsias_upper_bound']:.4f}, test rmse "
+          f"{res['test/rmse']:.5f}, nlpd {res['test/nlpd']:.5f}; launches "
+          f"over the run {out['launches']}; peak allocated over the run "
+          f"{out['peak_bytes'] / 2 ** 30:.2f} GiB", flush=True)
+    peak = max(st["peak_gib"] for st in steps)
+    require(all(math.isfinite(v) for v in losses), "houseelectric: loss")
+    require(losses[-1] < losses[0] and res["loss"] < losses[0],
+            "houseelectric: the loss did not fall")
+    require(res["elbo"] <= res["titsias_upper_bound"]
+            and res["cg_lower_bound"] <= res["titsias_upper_bound"],
+            "houseelectric: a bound above the upper bound")
+    require("test/rmse" in metrics and "test/nlpd" in metrics,
+            "houseelectric: test rmse / nlpd")
+    for st in steps:
+        require(all(st["launches"][k] > 0 for k in _counters()),
+                "houseelectric: a kernel was not launched in a step")
+        require(st["launches"]["kuf"] >= 2,
+                "houseelectric: kernel 3 ran in fewer than 2 chunks")
+    require(peak <= HOUSE_PEAK_GIB,
+            f"houseelectric: a step allocated {peak:.2f} GiB")
+    for name in _counters():
+        results[name]["launches_houseelectric_run"] = out["launches"][name]
+        results[name]["launches_per_houseelectric_step"] = statistics.mean(
+            st["launches"][name] for st in steps)
+    results["_houseelectric"] = {
+        "chunk_width": width, "chunks": chunks,
+        "step_s": [st["s"] for st in steps],
+        "step_peak_gib": [st["peak_gib"] for st in steps],
+        "step_losses": losses, "step_cg_steps": out["step_cg"],
+        "wall_s": out["wall_s"], **{k: res[k] for k in (
+            "loss", "elbo", "cg_lower_bound", "titsias_upper_bound",
+            "test/rmse", "test/nlpd")}}
+    _release(out)
+
+
+# --------------------------------------------------------------------------
 # --compare: kernel and step times of source trees, in turns
 # --------------------------------------------------------------------------
 
@@ -1391,6 +1707,7 @@ def main() -> int:
     print(f"[device] {card}", flush=True)
     if args.compare:
         return compare(args.compare, card)
+    t0 = time.perf_counter()
     phase_build()
     kernels: dict = {}
     phase_kernels(kernels)
@@ -1398,6 +1715,9 @@ def main() -> int:
     steps = warm_steps()
     print(f"[main] warm Adam steps ({card}): {json.dumps(steps)}",
           flush=True)
+    # the main path builds its common terms in one pass: one Kuf a step
+    require(steps["launches per step, kuf"] == 1,
+            "main path: the common terms were chunked")
     for name in _counters():
         kernels[name]["launches_per_step"] = steps[
             f"launches per step, {name}"]
@@ -1410,10 +1730,15 @@ def main() -> int:
     phase_exactgp(kernels, card)
     phase_gpr_anchor(card)
     phase_optimizers()
-    for name in _counters():  # over the three main paths
-        kernels[name]["launches"] = (kernels[name]["launches_adam_cli"]
-                                     + kernels[name]["launches_scipy4_run"]
-                                     + kernels[name]["launches_exactgp_run"])
+    phase_slabs(kernels, card)
+    phase_chunked(card)
+    phase_houseelectric(kernels, card)
+    for name in _counters():  # over the four main paths
+        kernels[name]["launches"] = (
+            kernels[name]["launches_adam_cli"]
+            + kernels[name]["launches_scipy4_run"]
+            + kernels[name]["launches_exactgp_run"]
+            + kernels[name]["launches_houseelectric_run"])
 
     sources = {"streaming_matvec": ("cglb_tpu_torch/csrc/matvec_kernels.cuh",
                                     "cglb_tpu/ops/matvec_pallas.py:164"),
@@ -1424,7 +1749,10 @@ def main() -> int:
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **kernels[name]} for name, (src, rep) in sources.items()],
-        "scipy4_run": kernels["_scipy4"], "exactgp_run": kernels["_exactgp"]}
+        "scipy4_run": kernels["_scipy4"], "exactgp_run": kernels["_exactgp"],
+        "houseelectric_run": kernels["_houseelectric"]}
+    print(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s "
+          f"({card})", flush=True)
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

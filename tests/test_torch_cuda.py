@@ -88,6 +88,32 @@ def test_symmetric_matvec_and_ls_grad_kernels_match_plain(dev, family, n, d,
 
 
 @pytest.mark.parametrize("family", ["mat32", "rbf"])
+@pytest.mark.parametrize("n,d,b", [(5000, 8, 1), (3000, 11, 3), (2100, 32, 8)])
+def test_symmetric_matvec_in_slabs_matches_plain(dev, monkeypatch, family, n,
+                                                 d, b):
+    """Kernel 1's symmetric path with its row-sum budget cut so that the
+    column blocks go out in at least 3 slabs: both tiers within their
+    bounds of the plain version, repeat launches bitwise equal, one count
+    per slab launch."""
+    rng = np.random.default_rng(5)
+    ls = torch.tensor(rng.uniform(0.5, 2.0, size=d), device=dev)
+    rows = tmv.Prepared(torch.tensor(rng.normal(size=(n, d)), device=dev),
+                        ls, family)
+    p = torch.tensor(rng.normal(size=(b, n)), device=dev)
+    want = tmv.matvec_unit_plain(rows.xg, rows.xg, p, family)
+    monkeypatch.setattr(tmv, "ROW_PARTIAL_BYTES", 4 * tmv._bpad(b) * n)
+    before = tmv.launch_matvec.launches
+    got = tmv.launch_matvec(rows, rows, p, True)
+    slabs = tmv.launch_matvec.launches - before
+    assert slabs >= 3
+    assert _rel(got, want) < 3e-6
+    assert torch.equal(got, tmv.launch_matvec(rows, rows, p, True))
+    cg = tmv.launch_matvec(rows, rows, p, False)
+    assert _rel(cg, want) < 2e-3
+    assert torch.equal(cg, tmv.launch_matvec(rows, rows, p, False))
+
+
+@pytest.mark.parametrize("family", ["mat32", "rbf"])
 @pytest.mark.parametrize("nr,nc,d,b", [(5000, 4100, 8, 1), (129, 2500, 32, 3),
                                        (5000, 0, 8, 1), (129, 0, 32, 3)])
 def test_matvec_and_ls_grad_kernels_are_deterministic(dev, family, nr, nc, d,

@@ -80,12 +80,13 @@ def test_wrappers_take_plain_version_only_on_cpu():
 
 
 @pytest.mark.parametrize("args,keys", [
-    (["--mesh", "4"], {"--mesh", "not ported"}),
-    (["--dispatch-bound", "2"], {"--dispatch-bound", "not ported"}),
+    (["--mesh", "4"], {"--mesh", "not ported", "NCCL", "ROADMAP.md"}),
+    (["--mesh", "2", "--dispatch-bound", "2"], {"--mesh", "not ported"}),
 ])
 def test_unported_options_fail_clearly(tmp_path, capsys, args, keys):
-    """The two options that are still unported end the CLI with a message
-    that names them."""
+    """--mesh above 1, the one option still unported, ends the CLI with a
+    message that names it and its queue, with --dispatch-bound (ported)
+    beside it or not."""
     from cglb_tpu_torch.experiments import cli
 
     with pytest.raises(SystemExit):

@@ -301,3 +301,150 @@ def test_padded_operands_are_zero_filled_and_aligned():
     assert tmv._padded(same, 2, 8) is same
     view = torch.zeros(2, 9, dtype=torch.float32)[:, 1:]
     assert tmv._padded(view, 2, 8).is_contiguous()
+
+
+# kernel 1's symmetric path in slabs of column blocks (pure Python)
+
+# the DP 32 instantiation of kernel 1 (D = 11 pads to 32): 2 columns a lane,
+# 64 rows a staged tile (Tile in csrc/matvec_kernels.cuh)
+GEO_DP32 = tmv.Geometry(64, 64, 132 * 2)
+HOUSEELECTRIC_TRAIN = 1_373_017  # int(2,049,280 * 0.67)
+
+
+def _check_slab_plan(n, geo, bp, budget):
+    slabs = tmv.plan_slabs(n, geo, bp, budget)
+    blocks = -(-n // geo.block_cols)
+    assert [s.cb0 for s in slabs] == [0] + [s.cb1 for s in slabs[:-1]]
+    assert slabs[-1].cb1 == blocks
+    for s in slabs:
+        assert s.cb1 > s.cb0
+        assert s.row_end == min(n, s.cb1 * geo.block_cols)
+        assert s.seg_rows % geo.stage_rows == 0
+        assert 1 <= s.segments <= tmv._MAX_SEGMENTS
+        assert (s.segments - 1) * s.seg_rows < s.row_end \
+            <= s.segments * s.seg_rows
+    return slabs
+
+
+@pytest.mark.parametrize("bp", [1, 8])
+def test_slab_plan_bounds_row_partials_at_houseelectric(bp):
+    """At houseelectric's training size the symmetric path's row sums, one
+    float per (column block, row), would take 117.8 GB at B = 1 in a single
+    launch; the slab plan holds every launch's to ROW_PARTIAL_BYTES (at most
+    1 GiB), whatever the batch width."""
+    n = HOUSEELECTRIC_TRAIN
+    blocks = -(-n // GEO_DP32.block_cols)
+    assert blocks == 21454
+    assert blocks * bp * n * 4 >= 117.8e9 * bp
+    slabs = _check_slab_plan(n, GEO_DP32, bp, tmv.ROW_PARTIAL_BYTES)
+    biggest = max((s.cb1 - s.cb0) * bp * s.row_end * 4 for s in slabs)
+    assert biggest <= tmv.ROW_PARTIAL_BYTES <= 1 << 30
+    assert len(slabs) > 1
+
+
+@pytest.mark.parametrize("bp", [1, 2, 4, 8])
+def test_one_slab_at_kin40k_shapes(bp):
+    """Up to the kin40k shapes one slab covers every column block, with the
+    row split the single launch had: the main path's launches are as they
+    were."""
+    for n, geo in ((26800, tmv.Geometry(128, 128, 132 * 3)),
+                   (26800, GEO_DP32), (13200, tmv.Geometry(128, 128, 396))):
+        slabs = _check_slab_plan(n, geo, bp, tmv.ROW_PARTIAL_BYTES)
+        assert len(slabs) == 1
+        assert (slabs[0].segments, slabs[0].seg_rows) == tmv.plan_segments(
+            n, n, geo, True)
+
+
+@pytest.mark.parametrize("geo", [tmv.Geometry(64, 64, 4),
+                                 tmv.Geometry(32, 128, 7)])
+@pytest.mark.parametrize("n", [129, 300])
+def test_symmetric_slabs_take_each_pair_once(geo, n):
+    """With a budget that forces several slabs, the launches' blocks (each
+    slab's column blocks against its rows [0, row_end)) still count every
+    ordered pair exactly once."""
+    slabs = _check_slab_plan(n, geo, 1, 4 * n)  # n floats a slab
+    assert len(slabs) >= 3
+    count = np.zeros((n, n), dtype=int)
+    for s in slabs:
+        for cb in range(s.cb0, s.cb1):
+            cols = np.arange(cb * geo.block_cols,
+                             min(n, (cb + 1) * geo.block_cols))
+            for begin, end in _segment_bounds(s.row_end, s.segments,
+                                              s.seg_rows):
+                both, col_only = _block_rows(n, n, geo.block_cols, cb, begin,
+                                             end, True)
+                for i in list(both) + list(col_only):
+                    count[i, cols] += 1
+                for i in both:
+                    count[cols, i] += 1
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("family", ["mat32", "rbf"])
+def test_slab_reduction_matches_whole_range(rng, family):
+    """The wrapper's slab reduction (each slab's column partials reduced
+    into its columns, then its row sums added to the rows it took, in slab
+    order), with the plain version on each block's rows, equals the
+    whole-range plain version."""
+    n, d, geo = 301, 5, tmv.Geometry(64, 64, 4)
+    x = torch.tensor(rng.normal(size=(n, d)))
+    p = torch.tensor(rng.normal(size=(3, n)))
+    slabs = _check_slab_plan(n, geo, 4, 4 * 4 * 128 * 2)
+    assert len(slabs) >= 3
+    out = torch.full((3, n), float("nan"), dtype=p.dtype)
+    for s in slabs:
+        col_part = torch.zeros(s.segments, 3, n, dtype=p.dtype)
+        row_part = torch.zeros(s.cb1 - s.cb0, 3, s.row_end, dtype=p.dtype)
+        for k, (begin, end) in enumerate(_segment_bounds(
+                s.row_end, s.segments, s.seg_rows)):
+            for cb in range(s.cb0, s.cb1):
+                c = slice(cb * geo.block_cols,
+                          min(n, (cb + 1) * geo.block_cols))
+                both, col_only = _block_rows(n, n, geo.block_cols, cb,
+                                             begin, end, True)
+                rows = list(both) + list(col_only)
+                if rows:
+                    col_part[k, :, c] = tmv.matvec_unit_plain(
+                        x[rows], x[c], p[:, rows], family)
+                if len(both):
+                    row_part[cb - s.cb0][:, list(both)] = \
+                        tmv.matvec_unit_plain(x[c], x[list(both)], p[:, c],
+                                              family)
+        j = slice(s.cb0 * geo.block_cols, min(n, s.cb1 * geo.block_cols))
+        out[:, j] = tmv.reduce_segments(col_part)[:, j]
+        out[:, :s.row_end] += tmv.reduce_segments(row_part)
+    want = tmv.matvec_unit_plain(x, x, p, family)
+    np.testing.assert_allclose(out.numpy(), want.numpy(),
+                               rtol=0, atol=1e-12 * float(want.abs().max()))
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """Each C entry point in csrc/*.cu takes as many parameters, of the same
+    kinds (pointer, 64-bit or 32-bit integer), as the ctypes argtypes the
+    wrappers call it with: a missing argtype passes a pointer as a 32-bit
+    int, which the card reports only as an illegal address."""
+    import ctypes
+    import re
+
+    from cglb_tpu_torch.ops import _build
+
+    kinds = {ctypes.c_void_p: "ptr", ctypes.c_longlong: "i64",
+             ctypes.c_int: "i32"}
+    found = {}
+    for src in _build.CSRC.glob("*.cu"):
+        text = src.read_text()
+        if 'extern "C"' not in text:
+            continue
+        body = text.split('extern "C"', 1)[1]
+        for name, params in re.findall(r"\bint\s+(cglb_\w+)\(([^)]*)\)",
+                                       body):
+            out = []
+            for param in params.split(","):
+                param = " ".join(param.split())
+                out.append("ptr" if "*" in param else
+                           "i64" if "long long" in param else "i32")
+            found[name] = out
+    assert set(found) == set(_build._SIGNATURES)
+    for name, argtypes in _build._SIGNATURES.items():
+        want = [kinds.get(t, "ptr") for t in argtypes]  # POINTER(c_int)
+        assert found[name] == want, name
