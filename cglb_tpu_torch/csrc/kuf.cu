@@ -13,14 +13,19 @@
 //              the backward's residual, written only when e != nullptr)
 //
 // with zg = Z sqrt(gamma) / lengthscale, xg = X sqrt(gamma) / lengthscale
-// prepared by the wrapper and zero-padded to DP in {8, 32} columns.
+// prepared by the wrapper and zero-padded to DP in {8, 32} columns, or, for
+// D > 32, to a multiple of kChunk (kuf_wide_kernel).
 //
 // What bounds it on an H100: writing the [M, N] output (8 bytes an entry,
 // 16 with e; 439 MB at M = 2048, N = 26800), next to one fp64 sqrt and exp
 // per entry.  Design: a block of 32 x 8 threads owns 32 rows (m) x 32 columns
 // (n); the 32 Z rows sit in shared memory and are read as warp broadcasts,
 // each thread keeps its X row in registers and writes 4 rows, so each warp
-// writes 32 consecutive entries of a row (coalesced).
+// writes 32 consecutive entries of a row (coalesced).  Above DP 32 the
+// wide kernel keeps the same blocks and loops over the coordinates in
+// chunks of kChunk: the chunk of the 32 Z rows in shared memory, of the
+// thread's X row in registers, t of its 4 entries summed across chunks in
+// the same order as one pass would, then the same profile.
 
 #include <climits>
 
@@ -33,6 +38,7 @@ constexpr int kCols = 32;           // n per block (threadIdx.x)
 constexpr int kRowThreads = 8;      // threadIdx.y
 constexpr int kRowsPerThread = 4;
 constexpr int kRows = kRowThreads * kRowsPerThread;  // m per block
+constexpr int kChunk = 32;  // coordinates a pass of kuf_wide_kernel
 
 __device__ __forceinline__ double exp_t(double x) { return exp(x); }
 __device__ __forceinline__ float exp_t(float x) { return expf(x); }
@@ -43,6 +49,23 @@ __device__ __forceinline__ double fma_t(double a, double b, double c) {
 }
 __device__ __forceinline__ float fma_t(float a, float b, float c) {
   return fmaf(a, b, c);
+}
+
+// kuf[o] = var * rho(t) and, with e_out, e_out[o] = e
+template <int FAM, typename T>
+__device__ __forceinline__ void write_entry(T t, T var, T* __restrict__ kuf,
+                                            T* __restrict__ e_out, size_t o) {
+  T rho, e;
+  if (FAM == RBF) {
+    rho = exp_t(-t);  // t = d2 / 2
+    e = rho;
+  } else {
+    const T s = sqrt_t(t);  // t = 3 d2 => s = sqrt(3) r
+    e = exp_t(-s);
+    rho = (T(1) + s) * e;
+  }
+  kuf[o] = var * rho;
+  if (e_out != nullptr) e_out[o] = e;
 }
 
 template <int FAM, int DP, typename T>
@@ -75,18 +98,52 @@ kuf_kernel(const T* __restrict__ zg, int m, const T* __restrict__ xg, int n,
       const T df = zs[r * DP + d] - xj[d];
       t = fma_t(df, df, t);
     }
-    T rho, e;
-    if (FAM == RBF) {
-      rho = exp_t(-t);  // t = d2 / 2
-      e = rho;
-    } else {
-      const T s = sqrt_t(t);  // t = 3 d2 => s = sqrt(3) r
-      e = exp_t(-s);
-      rho = (T(1) + s) * e;
+    write_entry<FAM, T>(t, var, kuf, e_out, (size_t)row * n + col);
+  }
+}
+
+template <int FAM, typename T>
+__global__ void __launch_bounds__(kCols * kRowThreads)
+kuf_wide_kernel(const T* __restrict__ zg, int m, const T* __restrict__ xg,
+                int n, int dp, const T* __restrict__ var_ptr,
+                T* __restrict__ kuf, T* __restrict__ e_out) {
+  __shared__ T zs[kRows * kChunk];
+  const int tid = threadIdx.y * kCols + threadIdx.x;
+  const int m0 = blockIdx.y * kRows;
+  const int col = blockIdx.x * kCols + threadIdx.x;
+
+  T t[kRowsPerThread];
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerThread; ++rr) t[rr] = T(0);
+  for (int d0 = 0; d0 < dp; d0 += kChunk) {
+    __syncthreads();  // every thread is done with the previous chunk
+    for (int k = tid; k < kRows * kChunk; k += kCols * kRowThreads) {
+      const int r = k / kChunk;
+      zs[k] = m0 + r < m ? zg[(size_t)(m0 + r) * dp + d0 + (k - r * kChunk)]
+                         : T(0);
     }
-    const size_t o = (size_t)row * n + col;
-    kuf[o] = var * rho;
-    if (e_out != nullptr) e_out[o] = e;
+    T xj[kChunk];
+#pragma unroll
+    for (int d = 0; d < kChunk; ++d)
+      xj[d] = col < n ? xg[(size_t)col * dp + d0 + d] : T(0);
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerThread; ++rr) {
+      const int r = threadIdx.y + rr * kRowThreads;
+#pragma unroll
+      for (int d = 0; d < kChunk; ++d) {
+        const T df = zs[r * kChunk + d] - xj[d];
+        t[rr] = fma_t(df, df, t[rr]);
+      }
+    }
+  }
+  if (col >= n) return;
+  const T var = *var_ptr;
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerThread; ++rr) {
+    const int row = m0 + threadIdx.y + rr * kRowThreads;
+    if (row >= m) break;
+    write_entry<FAM, T>(t[rr], var, kuf, e_out, (size_t)row * n + col);
   }
 }
 
@@ -111,6 +168,17 @@ int dispatch(const T* zg, long long m, const T* xg, long long n, int dp,
   if (family == MAT32 && dp == 32) return launch<T, MAT32, 32>(zg, mi, xg, ni, var, kuf, e, s);
   if (family == RBF && dp == 8) return launch<T, RBF, 8>(zg, mi, xg, ni, var, kuf, e, s);
   if (family == RBF && dp == 32) return launch<T, RBF, 32>(zg, mi, xg, ni, var, kuf, e, s);
+  if (dp > 32 && dp % kChunk == 0 && (family == RBF || family == MAT32)) {
+    const dim3 grid((ni + kCols - 1) / kCols, (mi + kRows - 1) / kRows);
+    const dim3 block(kCols, kRowThreads);
+    if (family == MAT32)
+      kuf_wide_kernel<MAT32, T><<<grid, block, 0, s>>>(zg, mi, xg, ni, dp, var,
+                                                       kuf, e);
+    else
+      kuf_wide_kernel<RBF, T><<<grid, block, 0, s>>>(zg, mi, xg, ni, dp, var,
+                                                     kuf, e);
+    return static_cast<int>(cudaGetLastError());
+  }
   return kBadArgument;
 }
 

@@ -1,6 +1,8 @@
 // C entry points of the streaming kernel matvec (kernel 1) and its
 // lengthscale gradient (kernel 2), bound with ctypes by ops/_build.py.  The
-// kernels and what they replace are described in matvec_kernels.cuh.
+// kernels and what they replace are described in matvec_kernels.cuh; a
+// coordinate width dp above 32 goes to the wide kernels of matvec_wide.cu,
+// which take the general path only (symmetric = 0, row_out = nullptr).
 
 #include <climits>
 
@@ -10,6 +12,13 @@ namespace cglb {
 namespace {
 
 int dispatch(const Args& a, int family, int dp, int b, Op op) {
+  if (dp > 32) {
+    switch (family) {
+      case RBF: return run_wide<RBF>(a, dp, b, op);
+      case MAT32: return run_wide<MAT32>(a, dp, b, op);
+      default: return kBadArgument;
+    }
+  }
   switch (family) {
     case RBF:
       return a.symmetric ? run_family<RBF, true>(a, dp, b, op)

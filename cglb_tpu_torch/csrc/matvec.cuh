@@ -1,7 +1,7 @@
 // Interface of kernels 1 and 2 between their C entry points (matvec.cu) and
 // their instantiations (matvec_kernels.cuh, compiled once per family and
-// path in matvec_<family>.cu and matvec_<family>_sym.cu, so that nvcc builds
-// the four in parallel).
+// path in matvec_<family>.cu and matvec_<family>_sym.cu, and the wide
+// kernels of matvec_wide.cu, so that nvcc builds the five in parallel).
 #pragma once
 
 #include "common.cuh"
@@ -37,5 +37,10 @@ struct Args {
 // for coordinate width dp in {8, 32} and batch b in {1, 2, 4, 8}
 template <int FAM, bool SYM>
 int run_family(const Args& a, int dp, int b, Op op);
+
+// the wide kernels 1 and 2 (matvec_wide.cu), general path only, for a
+// coordinate width dp > 32 that is a multiple of 32, batch b as above
+template <int FAM>
+int run_wide(const Args& a, int dp, int b, Op op);
 
 }  // namespace cglb

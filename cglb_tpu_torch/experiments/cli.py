@@ -7,7 +7,8 @@ Same grammar and options as ``cglb_tpu/experiments/cli.py:241-316``:
         cglb -m cglb -k Matern32 -i cv -M 2048 [-e 1.0]
 
 and the same artifacts in LOGDIR (``results.json``, ``logs.json``,
-``model.json``, ``checkpoint.json`` with ``--ckpt-every``) with the same keys.
+``model.json``, ``checkpoint.json`` with ``--ckpt-every``, and the
+TensorBoard scalars ``events.out.tfevents.*``) with the same keys and tags.
 Leaves: ``cglb``, ``cglbn2m``, ``cglbnm2``, ``sgpr``, ``sgprn2m`` and ``gpr -m
 gpr|exactgp -k KERNEL [-p model.json]`` (the dense and the iterative exact GP);
 optimizers: ``scipy``, ``scipy4``, ``scipy_tol``, ``lbfgs``, ``lbfgs_native``,
@@ -94,13 +95,16 @@ class _Action:
         logger = Logger(logdir, metrics_fn,
                         lambda: backend.model_parameters(model),
                         self.holdout_interval, include_feval_log=True)
-        res = backend.optimize(
-            model, datasets, num_steps, logger, self.optimizer,
-            checkpoint_every=self.ckpt_every,
-            checkpoint_dir=logdir if self.ckpt_every else None,
-            checkpoint_offset=done,
-            resume_extra=model.last_checkpoint_extra,
-            dispatch_bound=self.dispatch_bound)
+        try:
+            res = backend.optimize(
+                model, datasets, num_steps, logger, self.optimizer,
+                checkpoint_every=self.ckpt_every,
+                checkpoint_dir=logdir if self.ckpt_every else None,
+                checkpoint_offset=done,
+                resume_extra=model.last_checkpoint_extra,
+                dispatch_bound=self.dispatch_bound)
+        finally:
+            logger.close()
         backend.save(model, logdir)
 
         meta = {"id": logdir, "data": self.dataset.provenance}

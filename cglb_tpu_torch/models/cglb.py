@@ -29,7 +29,7 @@ predictor's A @ res then comes from ``sgpr.kuf_weighted``.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -220,9 +220,14 @@ def predict_prepare(params: SGPRParams, X, Y, v0,
                     matvec: Optional[Callable] = None) -> PredictCache:
     """Common terms, the CG solve at ``cg_tolerance`` (None, vzero and the
     joint v reuse v0 as is) and the [M, D] residual projection, once.
-    Where the common terms were chunked and A is held in the
-    preconditioner's dtype, A @ res is ``kuf_weighted``'s, so that no fp64
-    [M, N] is held."""
+    Where CG with an fp32 preconditioner ends above the tolerance, the solve
+    runs again from v0 with the fp64 one: at a large variance / noise ratio
+    the fp32 apply loses the +I of B = I + A A^T and CG diverges where the
+    fp64 one converges in a few steps (chip_smoke.py phase 5 prints both
+    solves at the end of the kin40k scipy4 run), and a v that far off makes
+    the predictive mean wrong.  Where the common terms were
+    chunked and A is held in the preconditioner's dtype, A @ res is
+    ``kuf_weighted``'s, so that no fp64 [M, N] is held."""
     sigma_sq = params.noise_variance.value
     sigma = torch.sqrt(sigma_sq)
     err = Y - mean_apply(params.mean, X)
@@ -232,9 +237,14 @@ def predict_prepare(params: SGPRParams, X, Y, v0,
     if cg_tolerance is None or cfg.v_is_external:
         v = v0
     else:
-        P = _make_precond(ct, sigma_sq, cfg)
-        v, _ = _cg.preconditioned_cg(matvec, err.T, v0, P, cg_tolerance,
-                                     cfg.max_cg_iters, cfg.restart_cg_iters)
+        # the configured preconditioner, then fp64 if that one failed
+        for dtype in dict.fromkeys((cfg.precond_dtype, "float64")):
+            P = _make_precond(ct, sigma_sq, replace(cfg, precond_dtype=dtype))
+            v, stats = _cg.preconditioned_cg(matvec, err.T, v0, P,
+                                             cg_tolerance, cfg.max_cg_iters,
+                                             cfg.restart_cg_iters)
+            if stats.residual_error <= cg_tolerance:
+                break
     res = err - matvec(v).T  # [N, D]
     if ct.A.dtype == X.dtype:
         Ares = ct.A @ res

@@ -2,8 +2,10 @@
 
 Counterpart of ``cglb_tpu/ops/kuf_pallas.py``.  Kernel 3
 (``csrc/kuf.cu``, :func:`launch_kuf`) computes the squared distance by
-direct differences and the profile in one fp64 pass, and on request also
-e = exp(-sqrt(t)) (Matern32) or rho (RBF), the backward's residual.  Beside
+direct differences and the profile in one fp64 pass (above 32 input
+dimensions over chunks of coordinates: ``matvec.coord_plan``), and on
+request also e = exp(-sqrt(t)) (Matern32) or rho (RBF), the backward's
+residual.  Beside
 it is the plain PyTorch version :func:`kuf_unit_plain`, taken only for
 tensors on the CPU.
 
@@ -26,7 +28,7 @@ import torch
 
 from . import _build
 from .kernels import GAMMA
-from .matvec import _dpad, _on_cpu
+from .matvec import _on_cpu, coord_plan
 
 __all__ = ["kuf", "kuf_unit", "kuf_unit_plain", "launch_kuf"]
 
@@ -63,7 +65,7 @@ def launch_kuf(zg, xg, var, family: str, with_e: bool = True
         raise ValueError("zg and xg differ in dtype or device")
     m, d = zg.shape
     n = xg.shape[0]
-    dp = _dpad(d)
+    dp = coord_plan(d).width
 
     def padded(a):
         out = torch.zeros(a.shape[0], dp, dtype=dtype, device=a.device)

@@ -2,7 +2,9 @@
 
 Counterpart of ``cglb_tpu/ops/matvec_pallas.py``.  Two CUDA kernels
 (``csrc/matvec_kernels.cuh``, entry points in ``csrc/matvec.cu``) do the
-work on the card:
+work on the card; above 32 input dimensions the wide kernels of
+``csrc/matvec_wide.cu`` do, looping over the coordinates in chunks
+(:func:`coord_plan`):
 
 - kernel 1, :func:`launch_matvec`: out[b, j] = sum_i p[b, i] rho(t_ij), with
   t = gamma * d2 from coordinates prepared once per objective evaluation
@@ -51,8 +53,9 @@ __all__ = ["Prepared", "kernel_matvec", "kernel_cross_matvec",
            "make_streaming_operator", "make_streaming_operator_pair",
            "matvec_unit", "matvec_unit_plain", "ls_grad_unit",
            "ls_grad_unit_plain", "launch_matvec", "launch_ls_grad",
-           "Geometry", "Slab", "plan_segments", "plan_slabs",
-           "reduce_segments", "MAX_BATCH", "ROW_PARTIAL_BYTES"]
+           "CoordPlan", "coord_plan", "Geometry", "Slab", "plan_segments",
+           "plan_slabs", "reduce_segments", "MAX_BATCH", "ROW_PARTIAL_BYTES",
+           "WIDE_CHUNK"]
 
 # rows of p one launch takes (the widest instantiation); wider batches are
 # launched in groups
@@ -70,16 +73,29 @@ _MAX_SEGMENTS = 32
 # unchanged; at houseelectric's 1,373,017 rows a slab takes 97 blocks at
 # B = 1 where all 21,454 would take 117.8 GB.
 ROW_PARTIAL_BYTES = 1 << 29
+# coordinates a pass of the wide kernels (csrc/matvec_wide.cu, kuf.cu)
+WIDE_CHUNK = 32
 
 
-def _dpad(d: int) -> int:
-    """Coordinate width the CUDA kernels are instantiated for."""
+class CoordPlan(NamedTuple):
+    """How the CUDA kernels 1-3 take d input dimensions: coordinates
+    zero-padded to ``width`` columns; ``wide`` above 32, where the kernels
+    loop over chunks of WIDE_CHUNK coordinates and kernels 1-2 take the
+    general path only (every ordered pair, also for K(X, X))."""
+    width: int
+    wide: bool
+
+
+def coord_plan(d: int) -> CoordPlan:
+    """The instantiated widths 8 and 32 up to d = 32; above it the next
+    multiple of WIDE_CHUNK, with no upper limit."""
+    if d < 1:
+        raise ValueError(f"input dimension {d} < 1")
     if d <= 8:
-        return 8
+        return CoordPlan(8, False)
     if d <= 32:
-        return 32
-    raise ValueError(f"input dimension {d} > 32 is not supported by the "
-                     "streaming kernels")
+        return CoordPlan(32, False)
+    return CoordPlan(-(-d // WIDE_CHUNK) * WIDE_CHUNK, True)
 
 
 def _bpad(b: int) -> int:
@@ -100,11 +116,13 @@ def _groups(b: int):
 class Prepared:
     """One point set's coordinates x sqrt(gamma) / lengthscale (detached,
     working dtype) and, for the CUDA kernels, their fp32 copy zero-padded
-    to the instantiated width.  Built once per objective evaluation."""
+    to the width of :func:`coord_plan`.  Built once per objective
+    evaluation."""
 
     def __init__(self, X: torch.Tensor, ls: torch.Tensor, family: str):
         self.family = family
         self.xg = (X * (math.sqrt(GAMMA[family]) / ls)).detach()
+        self.plan = coord_plan(self.xg.shape[1])
         self._packed = None
 
     @property
@@ -114,7 +132,7 @@ class Prepared:
     def packed(self) -> torch.Tensor:
         if self._packed is None:
             n, d = self.xg.shape
-            out = torch.zeros(n, _dpad(d), dtype=torch.float32,
+            out = torch.zeros(n, self.plan.width, dtype=torch.float32,
                               device=self.xg.device)
             out[:, :d] = self.xg
             self._packed = out
@@ -323,7 +341,8 @@ def launch_matvec(rows: Prepared, cols: Prepared, p: torch.Tensor,
     """Kernel 1 on the card: [B, Nc] in fp64 (accurate) or fp32 (CG), from
     per-segment partials summed by :func:`reduce_segments`.  When rows and
     cols are the same prepared set the symmetric path takes each pair once
-    and adds the per-column-block row sums.  B > MAX_BATCH: one launch per
+    and adds the per-column-block row sums (up to 32 input dimensions; the
+    wide kernels take the general path).  B > MAX_BATCH: one launch per
     group of rows, concatenated."""
     if p.ndim != 2 or p.shape[1] != rows.n:
         raise ValueError(f"p of shape {tuple(p.shape)} for {rows.n} rows")
@@ -344,8 +363,9 @@ def _launch_matvec_group(rows: Prepared, cols: Prepared, p: torch.Tensor,
     _same_device(xr, xc, pf)
     lib = _build.load()
     dp = xr.shape[1]
+    symmetric = rows is cols and not rows.plan.wide
     acc = torch.float64 if accurate else torch.float32
-    geo = _geometry(lib, rows.family, dp, bp, accurate, False, rows is cols,
+    geo = _geometry(lib, rows.family, dp, bp, accurate, False, symmetric,
                     p.device)
 
     def launch(cb0, row_end, ncols, segments, seg_rows, row_part):
@@ -361,7 +381,7 @@ def _launch_matvec_group(rows: Prepared, cols: Prepared, p: torch.Tensor,
         launch_matvec.accurate_launches += int(accurate)
         return part
 
-    if rows is not cols:
+    if not symmetric:
         segments, seg_rows = plan_segments(rows.n, cols.n, geo)
         return reduce_segments(launch(0, rows.n, cols.n, segments, seg_rows,
                                       None))[:B]
@@ -396,7 +416,8 @@ def launch_ls_grad(rows: Prepared, cols: Prepared, p: torch.Tensor,
                    g: torch.Tensor) -> torch.Tensor:
     """Kernel 2 on the card: [D] fp64, summed over its per-block partials
     by a deterministic torch.sum (no atomics); symmetric (each pair once,
-    m_ij + m_ji) when rows and cols are the same prepared set.  B >
+    m_ij + m_ji) when rows and cols are the same prepared set of at most 32
+    input dimensions.  B >
     MAX_BATCH: one launch per group of rows, added in fp64 in group order."""
     if p.ndim != 2 or g.shape != (p.shape[0], cols.n) \
             or p.shape[1] != rows.n:
@@ -412,7 +433,7 @@ def _launch_ls_grad_group(rows: Prepared, cols: Prepared, p: torch.Tensor,
                           g: torch.Tensor) -> torch.Tensor:
     xr, xc = rows.packed(), cols.packed()
     B = p.shape[0]
-    symmetric = rows is cols
+    symmetric = rows is cols and not rows.plan.wide
     bp = _bpad(B)
     ldp = -(-rows.n // 4) * 4
     ldg = ldp if symmetric else cols.n  # symmetric: g is staged like p

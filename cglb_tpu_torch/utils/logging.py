@@ -1,12 +1,15 @@
 """Run logging: pausable wall-clock StopWatch and the metrics Logger.
 
-A copy of ``cglb_tpu/utils/logging.py`` without its TensorBoard sink
-(``utils/tfevents.py`` is not ported yet; ROADMAP.md).  Elapsed time excludes
-metric evaluation (the StopWatch is paused around it); metrics and
-parameters (inducing points excluded) are recorded every
-``holdout_interval`` optimizer steps, and optionally CG stats on every
-function evaluation (``<key>-per-feval``), into the in-memory logs that the
-CLI dumps to ``logs.json``.
+A copy of ``cglb_tpu/utils/logging.py``.  Elapsed time excludes metric
+evaluation (the StopWatch is paused around it); metrics and parameters
+(inducing points excluded) are recorded every ``holdout_interval`` optimizer
+steps, and optionally CG stats on every function evaluation
+(``<key>-per-feval``), into the in-memory logs that the CLI dumps to
+``logs.json``.  With ``tensorboard=True`` (the default) and a logdir, every
+recorded step also goes to TensorBoard scalars (``utils/tfevents.py``, an
+``events.out.tfevents.*`` file in the logdir) under the JAX Logger's tags
+and steps: ``elapsed_time``, the kernel and likelihood parameters one scalar
+per dimension (``_tb_format_parameters``) and the metrics.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from contextlib import contextmanager
 from typing import Callable, Dict
 
 import numpy as np
+
+from .tfevents import EventFileWriter
 
 __all__ = ["StopWatch", "Logger"]
 
@@ -51,6 +56,16 @@ class StopWatch:
         return (time.time() - self._start_time) - self._total_paused
 
 
+def _make_tb_writer(logdir: str):
+    """The event-file writer in ``logdir``, or None where the file cannot
+    be created (a run is not refused for its TensorBoard sink, as in the
+    JAX package)."""
+    try:
+        return EventFileWriter(str(logdir))
+    except OSError:
+        return None
+
+
 class Logger:
     """Step callback recording metrics/params every holdout_interval steps."""
 
@@ -61,6 +76,7 @@ class Logger:
         model_parameters_fn: Callable[[], Dict[str, np.ndarray]],
         holdout_interval: int = 10,
         include_feval_log: bool = False,
+        tensorboard: bool = True,
     ):
         self.logdir = logdir
         self.holdout_interval = holdout_interval
@@ -70,6 +86,7 @@ class Logger:
         self._logs: Dict[str, list] = {}
         self.counter = 0
         self.timer = StopWatch()
+        self._tb = _make_tb_writer(logdir) if (tensorboard and logdir) else None
 
     @property
     def logs(self) -> Dict:
@@ -102,6 +119,22 @@ class Logger:
         finally:
             self.holdout_interval, self.include_feval_log = holdout, feval
 
+    def _tb_write(self, records: Dict[str, float], step: int):
+        if self._tb is None:
+            return
+        for name, value in records.items():
+            try:
+                value = float(np.asarray(value))
+            except (TypeError, ValueError):  # not a scalar: no TB tag
+                continue
+            self._tb.add_scalar(name, value, step)
+        self._tb.flush()
+
+    def close(self):
+        """Close the TensorBoard file (the logs stay readable)."""
+        if self._tb is not None:
+            self._tb.close()
+
     def __call__(self, step, *args):
         iteration = self.counter
         self.counter += 1
@@ -116,6 +149,9 @@ class Logger:
         try:
             params = self.model_parameters()
             metrics = self.metrics()
+            self._tb_write({"elapsed_time": elapsed,
+                            **_tb_format_parameters(params), **metrics},
+                           iteration)
             if "loss" in metrics:
                 print(f"{iteration} - loss={metrics['loss']:.4f}", flush=True)
             self.log(iteration=iteration, elapsed_time=elapsed, params=params,
@@ -123,3 +159,21 @@ class Logger:
         finally:
             if self.timer.started():
                 self.timer.resume()
+
+
+def _tb_format_parameters(parameters: Dict) -> Dict[str, float]:
+    """Kernel and likelihood parameters as one scalar tag per dimension
+    (``.kernel.lengthscales`` -> ``kernel/lengthscales[0]``, ...)."""
+    out = {}
+    for key, parameter in parameters.items():
+        name = key.lstrip(".")
+        if name.split(".")[0] not in ("kernel", "likelihood", "noise_variance"):
+            continue
+        p = np.asarray(parameter).reshape(-1)
+        tag = name.replace(".", "/", 1)
+        if p.size == 1:
+            out[tag] = float(p[0])
+        else:
+            for i in range(p.size):
+                out[f"{tag}[{i}]"] = float(p[i])
+    return out

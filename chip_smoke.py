@@ -76,7 +76,26 @@ Phases, each of which fails the run (non-zero exit) on error:
     width and count, per Adam step its seconds, CG steps, kernel launches
     and peak allocated bytes (at most 40 GiB), the loss lower after 3 steps
     than at the start, elbo and cg_lower_bound at most the upper bound,
-    finite test rmse and nlpd.
+    finite test rmse and nlpd;
+15. input dimensions above 32, where the wide kernels run: kernels 1-3 at D
+    40 and 100, both families, N 26800 (kernel 1 in both tiers on K(X, X)
+    and on two prepared sets, at B = 1 and 10; kernel 2 at B = 1; kernel 3
+    at M 1024) against their plain versions, repeats bitwise equal, times
+    beside bounds counted at D; then ``train -n 3 --holdout-interval -1 -d
+    synth_30000x40 -o adam_0.01 cglb -m cglb -k Matern32 -i cv -M 1024``
+    through the CLI: kernels 1-3 launched, the loss lower after 3 steps,
+    elbo and cg_lower_bound at most the upper bound, finite test metrics;
+16. the sweep runner: ``cglb_tpu_torch/experiments/grids/proof.toml`` (the
+    points of the TPU sweep runs/sweep-tpu-proof: kin40k, M 128-2048, 100
+    scipy steps) with ``-p 1`` in a fresh directory, five results.json and
+    five event files; a second call skips all five; ``plotcli
+    results_table`` then prints five rows with finite values and test rmse
+    at most 0.50, each beside the TPU run's (reported, not asserted).
+
+With ``--protocol-adam`` no phase runs: ``grids/protocol-adam.toml`` (the
+command of the TPU run runs/kin40k-2000-adam-r4, 2000 Adam steps) goes
+through the sweep runner from the repository root, and its best and final
+loss and test rmse are printed beside that run's.
 
 With ``--compare TREE ...`` no phase runs.  Each tree (a directory holding
 a ``cglb_tpu_torch`` package, such as an older commit unpacked with ``git
@@ -94,10 +113,14 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import csv
 import dataclasses
+import io
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -165,6 +188,26 @@ GPR_ANCHOR = (ROOT / "runs" / "compare" / "Wilson_kin40k"
 # must lie within 100 nats of it, about 4 sd of one estimate.
 EXACTGP_TOL = {"lml": 0.05, "test/rmse": 0.02, "test/nlpd": 0.1,
                "lml_vs_tpu_run": 100.0}
+
+
+# phase 15: input dimensions above 32 (the wide kernels) at N 26800, M 1024,
+# batches 1 and 10; then the CLI at D 40 (synth_30000x40: 20100 training
+# rows), 3 Adam steps, no metric evaluation inside the run
+WIDE_DS = (40, 100)
+WIDE_M = 1024
+WIDE_B = (1, 10)
+WIDE_ARGS = ["-t", "fp64", "-s", "0", "train", "-n", "3",
+             "--holdout-interval", "-1", "-d", "synth_30000x40", "-o",
+             "adam_0.01", "cglb", "-m", "cglb", "-k", "Matern32", "-i", "cv",
+             "-M", str(WIDE_M)]
+# phase 16: the proof grid (the TPU sweep runs/sweep-tpu-proof's points)
+GRIDS = ROOT / "cglb_tpu_torch" / "experiments" / "grids"
+PROOF_GRID = GRIDS / "proof.toml"
+PROOF_TPU = ROOT / "runs" / "sweep-tpu-proof" / "results_table.md"
+PROOF_RMSE = 0.50
+# --protocol-adam: the TPU run runs/kin40k-2000-adam-r4's command, whole
+ADAM_GRID = GRIDS / "protocol-adam.toml"
+ADAM_TPU = ROOT / "runs" / "kin40k-2000-adam-r4"
 
 
 class SmokeFailure(RuntimeError):
@@ -752,18 +795,22 @@ def phase_main_path(results: dict) -> None:
 
 
 def profiled_steps(step, steps: int) -> dict:
-    """``steps`` calls of ``step`` under torch.profiler: per step, the
-    device time of all kernels and of kernels 1-3 (self device time of the
-    events whose name holds the kernel's), and the launches of kernels 1-3."""
+    """``steps`` calls of ``step``, each a named region, under the port's
+    ``utils.profiling.trace`` (torch.profiler with the CUDA activity, a
+    Chrome trace written and its size read): per step, the device time of
+    all kernels and of kernels 1-3 (self device time of the events whose
+    name holds the kernel's), and the launches of kernels 1-3."""
+    from cglb_tpu_torch.utils.profiling import annotate, trace
+
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as logdir:
+        with trace(logdir, device="cuda") as prof:
+            for i in range(steps):
+                with annotate(f"step {i}"):
+                    step()
+        trace_bytes = prof.trace_path.stat().st_size
     tags = {"streaming_matvec": "matvec_kernel", "ls_grad": "ls_grad_kernel",
             "kuf": "kuf_kernel"}
     device = dict.fromkeys(["all"] + list(tags), 0.0)
@@ -780,15 +827,16 @@ def profiled_steps(step, steps: int) -> dict:
            for name, us in device.items()}
     for name, fn in counters.items():
         out[f"launches per step, {name}"] = fn.launches / steps
+    out["trace bytes"] = trace_bytes
     return out
 
 
-def warm_steps() -> dict:
+def warm_steps(profile: bool = True) -> dict:
     """Warm Adam steps of the main path's model (built as the CLI builds
     it, metrics excluded): the host-clock wall time of single steps that end
-    in a synchronize (median of 5, after one), then over 3 more steps under
-    torch.profiler the device time of all kernels and of kernels 1-3, and
-    the launches of kernels 1-3, per step."""
+    in a synchronize (median of 5, after one), then (``profile``) over 3
+    more steps under the port's profiler the device time of all kernels and
+    of kernels 1-3, and the launches of kernels 1-3, per step."""
     from cglb_tpu_torch.utils.training import adam_minimize
 
     model = _kin40k_model()
@@ -807,7 +855,8 @@ def warm_steps() -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     out = {"adam step s": statistics.median(times[1:])}
-    out.update(profiled_steps(step, 3))
+    if profile:
+        out.update(profiled_steps(step, 3))
     return out
 
 
@@ -1643,6 +1692,313 @@ def phase_houseelectric(results: dict, card: str) -> None:
 
 
 # --------------------------------------------------------------------------
+# phases 15-16: any input dimension; the sweep and the plot CLI
+# --------------------------------------------------------------------------
+
+
+def wide_inputs(d: int):
+    """X [N, d], Z [WIDE_M, d], p [10, N], g [1, N], lengthscales sqrt(d)
+    x U(0.5, 2) (so that K is not near-diagonal at this d) and the variance,
+    on the card, from numpy seed d."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(d)
+    X = torch.as_tensor(rng.normal(size=(N, d)), device=dev)
+    Z = torch.as_tensor(rng.normal(size=(WIDE_M, d)), device=dev)
+    P = torch.as_tensor(rng.normal(size=(max(WIDE_B), N)), device=dev)
+    g = torch.as_tensor(rng.normal(size=(1, N)), device=dev)
+    ls = torch.as_tensor(math.sqrt(d) * rng.uniform(0.5, 2.0, size=d),
+                         device=dev)
+    var = torch.as_tensor(1.7, dtype=torch.float64, device=dev)
+    return X, Z, P, g, ls, var
+
+
+def _wide_family(d: int, family: str, inputs, card: str) -> dict:
+    """Kernels 1-3 of one family at input dimension d > 32 against their
+    plain versions (each timed once, as it is computed), repeats bitwise,
+    then the kernels' times beside their bounds: {row: (ms, bound)} and the
+    errors and plain times of the kernels-line rows."""
+    from cglb_tpu_torch.ops import kuf as _kuf
+    from cglb_tpu_torch.ops import matvec as _mv
+
+    X, Z, P, g, ls, var = inputs
+    rows = _mv.Prepared(X, ls, family)
+    rows2 = _mv.Prepared(X, ls, family)
+    require(rows.plan.wide, f"D {d}: not the wide plan")
+    tag = f"[wide] {family} D {d} (width {rows.plan.width})"
+    out = {}
+    for b in WIDE_B:
+        p = P[:b]
+        plain, plain_ms = once_ms(
+            lambda: _mv.matvec_unit_plain(rows.xg, rows.xg, p, family))
+        for accurate in (True, False):
+            tier = "accurate" if accurate else "CG tier"
+            tol = TOL["matvec_accurate" if accurate else "matvec_cg"]
+            sym = _mv.launch_matvec(rows, rows, p, accurate)
+            gen = _mv.launch_matvec(rows, rows2, p, accurate)
+            e_sym, abs_sym = rel_err(sym, plain)
+            e_gen, _ = rel_err(gen, plain)
+            same = (torch.equal(sym, _mv.launch_matvec(rows, rows, p,
+                                                       accurate))
+                    and torch.equal(gen, _mv.launch_matvec(rows, rows2, p,
+                                                           accurate)))
+            print(f"{tag} kernel 1 {tier} B {b}: rel err K(X, X) "
+                  f"{e_sym:.3e}, two prepared sets {e_gen:.3e} (bound "
+                  f"{tol:g}); repeats bitwise equal {same}; plain "
+                  f"{plain_ms:.1f} ms", flush=True)
+            require(max(e_sym, e_gen) <= tol, f"{tag} kernel 1 {tier} B {b}")
+            require(same, f"{tag} kernel 1 {tier} B {b} is not deterministic")
+            if b == 1 and accurate:
+                out["matvec"] = (abs_sym, plain_ms)
+        del plain
+    p = P[:1]
+    ls_plain, ls_plain_ms = once_ms(
+        lambda: _mv.ls_grad_unit_plain(rows.xg, rows.xg, p, g, family))
+    ls_k = _mv.launch_ls_grad(rows, rows, p, g)
+    e, ls_abs = rel_err(ls_k, ls_plain)
+    same = torch.equal(ls_k, _mv.launch_ls_grad(rows, rows, p, g))
+    print(f"{tag} kernel 2 B 1: rel err {e:.3e} (bound {TOL['backward']:g});"
+          f" repeats bitwise equal {same}; plain {ls_plain_ms:.1f} ms",
+          flush=True)
+    require(e <= TOL["backward"], f"{tag} kernel 2")
+    require(same, f"{tag} kernel 2 is not deterministic")
+    out["ls_grad"] = (ls_abs, ls_plain_ms)
+    c = math.sqrt(_mv.GAMMA[family])
+    zg, xg = Z * (c / ls), X * (c / ls)
+    (kuf_p, e_p), kuf_plain_ms = once_ms(
+        lambda: _kuf.kuf_unit_plain(zg, xg, var, family))
+    kuf_k, e_k = _kuf.launch_kuf(zg, xg, var, family)
+    kuf_err, kuf_abs = rel_err(kuf_k, kuf_p)
+    e_err, _ = rel_err(e_k, e_p)
+    same = torch.equal(kuf_k, _kuf.launch_kuf(zg, xg, var, family)[0])
+    print(f"{tag} kernel 3 {WIDE_M}x{N}: rel err {kuf_err:.3e}, residual e "
+          f"{e_err:.3e} (bound {TOL['kuf']:g}); repeats bitwise equal "
+          f"{same}; plain {kuf_plain_ms:.1f} ms", flush=True)
+    require(max(kuf_err, e_err) <= TOL["kuf"], f"{tag} kernel 3")
+    require(same, f"{tag} kernel 3 is not deterministic")
+    out["kuf"] = (kuf_abs, kuf_plain_ms)
+    del ls_plain, kuf_p, e_p, kuf_k, e_k
+
+    def mv(r, c_, b, accurate):
+        return lambda: _mv.launch_matvec(r, c_, P[:b], accurate)
+
+    timed = {
+        "kernel 1 accurate K(X, X) B 1": (
+            mv(rows, rows, 1, True), matvec_bound(N, N, d, 1, True, True)),
+        "kernel 1 CG tier K(X, X) B 1": (
+            mv(rows, rows, 1, False), matvec_bound(N, N, d, 1, False, True)),
+        "kernel 1 accurate K(X, X) B 10": (
+            mv(rows, rows, 10, True), matvec_bound(N, N, d, 10, True, True)),
+        "kernel 1 accurate, two prepared sets, B 1": (
+            mv(rows, rows2, 1, True), matvec_bound(N, N, d, 1, True)),
+        "kernel 2 B 1": (lambda: _mv.launch_ls_grad(rows, rows, p, g),
+                         ls_grad_bound(N, N, d, 1, True)),
+        f"kernel 3 {WIDE_M}x{N}": (
+            lambda: _kuf.launch_kuf(zg, xg, var, family),
+            kuf_bound(WIDE_M, N, d)),
+    }
+    out["times"] = {}
+    for name, (fn, bnd) in timed.items():
+        ms = cuda_ms(fn, 3)
+        show(f"{family} D {d} {name}", ms, bnd, f" ({card})")
+        out["times"][name] = (ms, bnd)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_wide(results: dict, card: str) -> None:
+    """Kernels 1-3 at D 40 and 100, both families, at N 26800 (M 1024)."""
+    for d in WIDE_DS:
+        inputs = wide_inputs(d)
+        for family in ("mat32", "rbf"):
+            got = _wide_family(d, family, inputs, card)
+            if family != "mat32":  # the kernels line holds Matern32's
+                continue
+            times = got["times"]
+            rows = {
+                "streaming_matvec_wide": (got["matvec"], times[
+                    "kernel 1 accurate K(X, X) B 1"]),
+                "ls_grad_wide": (got["ls_grad"], times["kernel 2 B 1"]),
+                "kuf_wide": (got["kuf"], times[f"kernel 3 {WIDE_M}x{N}"])}
+            for name, ((abs_err, plain_ms), (ms, bnd)) in rows.items():
+                if d == WIDE_DS[0]:
+                    results[name] = dict(
+                        max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+                        d=d)
+                else:
+                    results[name].update({
+                        f"max_abs_err_d{d}": abs_err, f"ms_d{d}": ms,
+                        f"plain_ms_d{d}": plain_ms, f"bound_ms_d{d}": bnd[0]})
+            results["streaming_matvec_wide"].update({
+                f"ms_cg_tier_d{d}": times["kernel 1 CG tier K(X, X) B 1"][0],
+                f"ms_b10_d{d}": times["kernel 1 accurate K(X, X) B 10"][0],
+                f"ms_general_d{d}": times[
+                    "kernel 1 accurate, two prepared sets, B 1"][0]})
+        del inputs
+        torch.cuda.empty_cache()
+
+
+def phase_wide_cli(results: dict, card: str) -> None:
+    """The CLI trainer at D 40: the wide kernels on the main path."""
+    with tempfile.TemporaryDirectory() as logdir:
+        out = run_cli(WIDE_ARGS, logdir, steps=True)
+    res, losses, launches = out["res"], out["step_losses"], out["launches"]
+    require(out["model"].data[0].shape[1] == 40, "wide: data not at D 40")
+    metrics = finite_metrics(res, "wide")
+    print(f"[wide] CLI run ({' '.join(WIDE_ARGS)}): {out['wall_s']:.2f} s "
+          f"wall; step losses {losses}, CG steps {out['step_cg']}; final "
+          f"loss {res['loss']:.4f}, elbo {res['elbo']:.4f}, cg_lower_bound "
+          f"{res['cg_lower_bound']:.4f}, upper "
+          f"{res['titsias_upper_bound']:.4f}, test rmse "
+          f"{res['test/rmse']:.5f}, nlpd {res['test/nlpd']:.5f}; launches "
+          f"{launches} ({card})", flush=True)
+    require(len(losses) == 3, "wide: not 3 objective evaluations")
+    require(losses[-1] < losses[0] and res["loss"] < losses[0],
+            "wide: the loss did not fall")
+    require(res["elbo"] <= res["titsias_upper_bound"]
+            and res["cg_lower_bound"] <= res["titsias_upper_bound"],
+            "wide: a bound above the upper bound")
+    require("test/rmse" in metrics and "test/nlpd" in metrics,
+            "wide: test rmse / nlpd")
+    require_all_launched(launches, "wide")
+    for name in _counters():
+        results[f"{name}_wide"]["launches"] = launches[name]
+    results["_wide"] = {"step_losses": losses, "wall_s": out["wall_s"],
+                        **{k: res[k] for k in (
+                            "loss", "elbo", "cg_lower_bound",
+                            "titsias_upper_bound", "test/rmse",
+                            "test/nlpd")}}
+    _release(out)
+
+
+def _port_env() -> dict:
+    """The environment of a subprocess that imports this checkout's
+    package from any directory."""
+    path = [str(ROOT)] + [p for p in os.environ.get(
+        "PYTHONPATH", "").split(os.pathsep) if p]
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(path))
+
+
+def _module(args, cwd, timeout: float) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-m"] + list(args), cwd=cwd,
+                          env=_port_env(), capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def _tpu_table(path: Path) -> dict:
+    """uid -> (loss, test rmse, test nlpd) of a results_table.md of the JAX
+    package (pandas markdown, index ('dataset', 'uid'))."""
+    out = {}
+    for m in re.finditer(r"'([^']+)'\) *\| *([-\d.]+) *\| *([-\d.]+) *\| "
+                         r"*([-\d.]+) *\|", path.read_text()):
+        out[m.group(1)] = tuple(float(v) for v in m.groups()[1:])
+    return out
+
+
+def phase_sweep(card: str) -> None:
+    """grids/proof.toml through the port's sweep runner (-p 1) in a fresh
+    directory, again (every point skipped), then plotcli results_table."""
+    t0 = time.perf_counter()
+    sweep = ["cglb_tpu_torch.experiments.sweep", str(PROOF_GRID), "-p", "1"]
+    with tempfile.TemporaryDirectory() as work:
+        first = _module(sweep, work, 900)
+        first_s = time.perf_counter() - t0
+        OUT.mkdir(exist_ok=True)
+        (OUT / "chip_smoke_sweep.log").write_text(first.stdout + first.stderr)
+        require(first.returncode == 0, f"sweep: rc {first.returncode} "
+                f"(chiprun_out/chip_smoke_sweep.log): {first.stderr[-2000:]}")
+        root = Path(work, "runs", "sweep-proof")
+        results = sorted(root.glob("*/*/*/results.json"))
+        events = sorted(root.glob("*/*/*/events.out.tfevents.*"))
+        print(f"[sweep] {PROOF_GRID.relative_to(ROOT)} -p 1: rc "
+              f"{first.returncode}, {len(results)} results.json, "
+              f"{len(events)} event files, {first_s:.1f} s", flush=True)
+        require(len(results) == 5 and len(events) == 5,
+                "sweep: not five results and five event files")
+        for path in results:
+            require(json.loads(path.read_text())["data"] == "synthetic",
+                    "sweep: synthetic stand-in expected")
+        second = _module(sweep, work, 300)
+        skipped = second.stdout.count("[skip]")
+        ran = second.stdout.count("[run")
+        print(f"[sweep] second call: rc {second.returncode}, {skipped} "
+              f"skipped, {ran} run", flush=True)
+        require(second.returncode == 0 and skipped == 5 and ran == 0,
+                "sweep: the second call did not skip all five points")
+        table = _module(["cglb_tpu_torch.experiments.plotcli", "-r",
+                         str(root), "results_table", "-f", "csv"], work, 300)
+        require(table.returncode == 0,
+                f"plotcli results_table: {table.stderr[-2000:]}")
+    rows = list(csv.DictReader(io.StringIO(table.stdout)))
+    tpu = _tpu_table(PROOF_TPU)
+    print(f"[sweep] plotcli results_table: {len(rows)} rows; port (this "
+          f"card) against the TPU runs of {PROOF_TPU.relative_to(ROOT)}, "
+          "reported, not asserted:", flush=True)
+    require(len(rows) == 5, "plotcli: not five rows")
+    for row in rows:
+        got = tuple(float(row[k]) for k in ("loss", "test/rmse", "test/nlpd"))
+        want = tpu.get(row["uid"])
+        print(f"[sweep]   {row['uid']}: loss {got[0]:.4f}, test rmse "
+              f"{got[1]:.4f}, nlpd {got[2]:.4f}; TPU "
+              + ("none" if want is None else
+                 f"{want[0]:.4f} / {want[1]:.4f} / {want[2]:.4f}"),
+              flush=True)
+        require(all(math.isfinite(v) for v in got), "plotcli: a value is "
+                "not finite")
+        require(got[1] <= PROOF_RMSE, f"sweep: test rmse above {PROOF_RMSE}")
+    print(f"[sweep] phase {time.perf_counter() - t0:.1f} s ({card})",
+          flush=True)
+
+
+def protocol_adam(card: str) -> int:
+    """grids/protocol-adam.toml through the port's sweep runner, from the
+    repository root (its logdir is under runs/, which git ignores): the
+    whole 2000-step Adam run, its best and final loss and test rmse beside
+    the TPU run's (reported), its logs copied to chiprun_out/."""
+    from cglb_tpu_torch.utils.serialization import load_json
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "cglb_tpu_torch.experiments.sweep",
+         str(ADAM_GRID), "--restart"], cwd=ROOT, env=_port_env(),
+        timeout=1800)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"protocol Adam run: rc {proc.returncode}")
+    (logdir,) = sorted(ROOT.glob("runs/protocol-adam/*/*/*/"))
+    res = load_json(logdir / "results.json")
+    logs = load_json(logdir / "logs.json")
+    tpu = load_json(ADAM_TPU / "logs.json")
+    finite_metrics(res, "protocol-adam")
+    OUT.mkdir(exist_ok=True)
+    for name in ("results.json", "logs.json"):
+        shutil.copy(logdir / name, OUT / f"protocol-adam-{name}")
+
+    def summary(lg):
+        return {"records": len(lg["loss"]), "best loss": min(lg["loss"]),
+                "final loss": lg["loss"][-1],
+                "best test rmse": min(lg["test/rmse"]),
+                "final test rmse": lg["test/rmse"][-1]}
+
+    train_s = logs["elapsed_time"][-1]
+    print(f"[protocol-adam] {wall:.1f} s wall; train s {train_s:.1f} at the "
+          f"last record; port {json.dumps(summary(logs))}; "
+          f"TPU run {ADAM_TPU.relative_to(ROOT)} "
+          f"{json.dumps(summary(tpu))}; final results.json loss "
+          f"{res['loss']:.4f}, test rmse {res['test/rmse']:.4f}, nlpd "
+          f"{res['test/nlpd']:.4f}, elbo {res['elbo']:.4f}, cg_lower_bound "
+          f"{res['cg_lower_bound']:.4f}, upper "
+          f"{res['titsias_upper_bound']:.4f} ({card})", flush=True)
+    require(len(logs["loss"]) == 100, "protocol-adam: not 100 records")
+    require(logs["loss"][-1] < logs["loss"][0], "protocol-adam: the loss "
+            "did not fall")
+    require(res["elbo"] <= res["titsias_upper_bound"]
+            and res["cg_lower_bound"] <= res["titsias_upper_bound"],
+            "protocol-adam: a bound above the upper bound")
+    return 0
+
+
+
+# --------------------------------------------------------------------------
 # --compare: kernel and step times of source trees, in turns
 # --------------------------------------------------------------------------
 
@@ -1661,7 +2017,8 @@ def times_of_tree(tree: Path) -> int:
     for name, (fn, _, _) in kernel_rows("mat32", kernel_inputs()).items():
         out[f"{name} ms"] = cuda_ms(fn, 10)
     torch.cuda.empty_cache()
-    out.update(warm_steps())
+    # unprofiled: an older tree may lack the profiling module
+    out.update(warm_steps(profile=False))
     print(_RESULT + json.dumps(out), flush=True)
     return 0
 
@@ -1694,6 +2051,8 @@ def main() -> int:
     ap.add_argument("--compare", nargs="+", metavar="TREE",
                     help="time these source trees in turns instead")
     ap.add_argument("--times-of", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--protocol-adam", action="store_true",
+                    help="run the whole Adam protocol grid instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1707,6 +2066,8 @@ def main() -> int:
     print(f"[device] {card}", flush=True)
     if args.compare:
         return compare(args.compare, card)
+    if args.protocol_adam:
+        return protocol_adam(card)
     t0 = time.perf_counter()
     phase_build()
     kernels: dict = {}
@@ -1733,6 +2094,9 @@ def main() -> int:
     phase_slabs(kernels, card)
     phase_chunked(card)
     phase_houseelectric(kernels, card)
+    phase_wide(kernels, card)
+    phase_wide_cli(kernels, card)
+    phase_sweep(card)
     for name in _counters():  # over the four main paths
         kernels[name]["launches"] = (
             kernels[name]["launches_adam_cli"]
@@ -1745,12 +2109,19 @@ def main() -> int:
                "ls_grad": ("cglb_tpu_torch/csrc/matvec_kernels.cuh",
                            "cglb_tpu/ops/matvec_pallas.py:190"),
                "kuf": ("cglb_tpu_torch/csrc/kuf.cu",
-                       "cglb_tpu/ops/kuf_pallas.py:186")}
+                       "cglb_tpu/ops/kuf_pallas.py:186"),
+               "streaming_matvec_wide": ("cglb_tpu_torch/csrc/matvec_wide.cu",
+                                         "cglb_tpu/ops/matvec_pallas.py:164"),
+               "ls_grad_wide": ("cglb_tpu_torch/csrc/matvec_wide.cu",
+                                "cglb_tpu/ops/matvec_pallas.py:190"),
+               "kuf_wide": ("cglb_tpu_torch/csrc/kuf.cu",
+                            "cglb_tpu/ops/kuf_pallas.py:186")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **kernels[name]} for name, (src, rep) in sources.items()],
         "scipy4_run": kernels["_scipy4"], "exactgp_run": kernels["_exactgp"],
-        "houseelectric_run": kernels["_houseelectric"]}
+        "houseelectric_run": kernels["_houseelectric"],
+        "wide_run": kernels["_wide"]}
     print(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s "
           f"({card})", flush=True)
     print(json.dumps(line))

@@ -18,10 +18,12 @@ ROOT = Path(__file__).resolve().parent.parent
 
 _BLOCKED = """
 import sys
-for name in ("jax", "click", "optax", "cglb_tpu"):
+for name in ("jax", "click", "optax", "cglb_tpu", "pandas", "matplotlib"):
     sys.modules[name] = None
 import cglb_tpu_torch, cglb_tpu_torch.backend
 import cglb_tpu_torch.utils.flatten, cglb_tpu_torch.experiments.baselines
+import cglb_tpu_torch.utils.profiling, cglb_tpu_torch.utils.tfevents
+from cglb_tpu_torch.experiments import (names, plotcli, plotting, sweep)
 from cglb_tpu_torch.experiments import cli
 argv = sys.argv[1:]
 cli.main(argv)
@@ -34,10 +36,10 @@ assert not any(m == "jax" or m.startswith(("jax.", "cglb_tpu."))
 
 
 def test_port_runs_with_jax_click_optax_blocked(tmp_path):
-    """Import the package, its backend, flatten bridge, baselines and CLI,
-    and run a 2-step CPU scipy4 training with checkpoints and then a staged
-    ``gpr -m exactgp`` run, with jax, click, optax and cglb_tpu
-    unimportable."""
+    """Import the package, its backend, flatten bridge, baselines, CLI and
+    experiment tooling, and run a 2-step CPU scipy4 training with
+    checkpoints and then a staged ``gpr -m exactgp`` run, with jax, click,
+    optax, cglb_tpu, pandas and matplotlib unimportable."""
     env = dict(os.environ, CGLB_DATA_DIR=str(tmp_path / "no_data_here"),
                PYTHONPATH=str(ROOT))
     proc = subprocess.run(
@@ -53,13 +55,19 @@ def test_port_runs_with_jax_click_optax_blocked(tmp_path):
 
 
 def test_no_jax_import_in_port_sources():
-    pattern = re.compile(r"^\s*(import|from) (jax|click|optax|cglb_tpu)\b",
-                         re.M)
+    """No jax, click, optax, cglb_tpu or pandas anywhere in the port or
+    chip_smoke.py; matplotlib only inside experiments/plotting.py (the
+    Plotter imports it when it draws)."""
+    pattern = re.compile(
+        r"^\s*(import|from) (jax|click|optax|cglb_tpu|pandas)\b", re.M)
+    plots = re.compile(r"^\s*(import|from) matplotlib\b", re.M)
     files = list((ROOT / "cglb_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
     for f in files:
         assert not pattern.search(f.read_text()), f
+        if f.name != "plotting.py":
+            assert not plots.search(f.read_text()), f
 
 
 def test_cuda_device_without_cuda_raises():

@@ -100,3 +100,29 @@ def test_residual_e_only_when_a_gradient_is_needed(rng):
                            torch.tensor(1.3, dtype=torch.float64), "rbf",
                            with_e=False)
     assert e is None and kuf.shape == (4, 8)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("d", [33, 40, 100])
+def test_forward_and_backward_match_dense_above_32_dimensions(rng, family,
+                                                              d):
+    """The wide plan of kernel 3 (D > 32, coordinates padded to a multiple
+    of 32): values to 1e-12 and gradients to 1e-9 against dense fp64 in the
+    JAX package."""
+    jkern, tkern, Z, X = _setup(rng, family, m=12, n=40, d=d)
+    Z, X = Z * np.sqrt(4 / d), X * np.sqrt(4 / d)  # K off the diagonal
+    W = rng.normal(size=(12, 40))
+    Zt = torch.tensor(Z, requires_grad=True)
+    out = tkuf.kuf(tkern, Zt, torch.tensor(X))
+    dense = np.asarray(jk.K(jkern, jnp.asarray(Z), jnp.asarray(X)))
+    np.testing.assert_allclose(out.detach().numpy(), dense, rtol=0,
+                               atol=1e-12 * np.max(np.abs(dense)))
+    torch.sum(torch.tensor(W) * out).backward()
+    gd = jax.grad(lambda kern, Zv: jnp.sum(W * jk.K(kern, Zv, jnp.asarray(X))),
+                  argnums=(0, 1))(jkern, jnp.asarray(Z))
+    for got, want in ((tkern.variance.raw.grad, gd[0].variance.raw),
+                      (tkern.lengthscales.raw.grad, gd[0].lengthscales.raw),
+                      (Zt.grad, gd[1])):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-9 * np.max(np.abs(want)))

@@ -143,10 +143,91 @@ def test_plain_ls_grad_matches_finite_difference(rng):
 
 def test_kernel_shape_limits():
     with pytest.raises(ValueError):
-        tmv._dpad(33)
+        tmv.coord_plan(0)
     with pytest.raises(ValueError):
         tmv._bpad(9)
     assert [tmv._bpad(b) for b in (1, 2, 3, 5, 8)] == [1, 2, 4, 8, 8]
+
+
+@pytest.mark.parametrize("d,width,wide", [
+    (1, 8, False), (8, 8, False), (9, 32, False), (32, 32, False),
+    (33, 64, True), (64, 64, True), (100, 128, True), (1000, 1024, True)])
+def test_coordinate_plan_at_any_dimension(rng, d, width, wide):
+    """Every D >= 1 has a launch plan: the instantiated widths 8 and 32 up
+    to 32 (as before), above it the wide kernels' multiple of WIDE_CHUNK;
+    the packed coordinates are the scaled ones, zero-padded."""
+    assert tmv.coord_plan(d) == (width, wide)
+    assert width % tmv.WIDE_CHUNK == 0 or not wide
+    X = torch.tensor(rng.normal(size=(5, d)))
+    prep = tmv.Prepared(X, torch.full((d,), 2.0, dtype=torch.float64),
+                        "mat32")
+    packed = prep.packed()
+    assert prep.plan.wide == wide and packed.shape == (5, width)
+    assert packed.dtype == torch.float32 and packed.is_contiguous()
+    assert torch.equal(packed[:, :d], prep.xg.float())
+    assert not packed[:, d:].any()
+
+
+@pytest.mark.parametrize("name,family", FAMILIES)
+def test_cglb_loss_and_grads_match_jax_above_32_dimensions(rng, name,
+                                                          family):
+    """D = 40, the wide plan (coordinates padded to 64; K(X, X) on the
+    general path): the port's CGLB loss on its streaming operator pair,
+    with Kuf from kernel 3's wrapper (plain versions on the CPU), against
+    the JAX package's at one converged v, fp64 common terms and
+    preconditioner in both: 1e-9 on the loss, 1e-7 on every gradient."""
+    from cglb_tpu.models import cglb as jc
+    from cglb_tpu.models import sgpr as js
+    from cglb_tpu_torch.models import cglb as tc
+    from cglb_tpu_torch.models import sgpr as ts
+
+    n, d, m = 300, 40, 12
+    X = rng.normal(size=(n, d))
+    Y = np.sin(X[:, :1]) + 0.1 * rng.normal(size=(n, 1))
+    Z = X[:m].copy()
+    ls = np.sqrt(d) * rng.uniform(0.5, 1.5, size=d)  # K off the diagonal
+    jkern = dataclasses.replace(
+        jk.make_kernel(name, d, dtype=np.float64),
+        variance=JParam.positive(1.3, lower=1e-6),
+        lengthscales=JParam.positive(jnp.asarray(ls), lower=1e-6))
+    jp = js.SGPRParams.create(jkern, Z, noise_variance=0.3, dtype=np.float64)
+    tp = ts.SGPRParams(tk.make_kernel(name, d, variance=1.3, lengthscales=ls,
+                                      dtype=torch.float64),
+                       Z, noise_variance=0.3, dtype=torch.float64)
+    Xt, Yt = torch.tensor(X), torch.tensor(Y)
+    assert tmv.Prepared(Xt, tp.kernel.lengthscales.value, family).plan.wide
+
+    def operators():
+        return tmv.make_streaming_operator_pair(tp.kernel, Xt,
+                                                tp.noise_variance.value)
+
+    with torch.no_grad():
+        acc, cgt = operators()
+        _, aux = tc.loss(tp, Xt, Yt, tc.init_v0(n), tc.CGLBConfig(
+            max_error=1e-14, max_cg_iters=1000, precond_dtype="float64"),
+            matvec=acc, matvec_cg=cgt)
+    v = aux.v.numpy()
+    jcfg = jc.CGLBConfig(max_error=1e30, common_dtype="float64",
+                         precond_dtype="float64")
+    (jl, _), jg = jax.jit(jax.value_and_grad(
+        lambda p: jc.loss(p, jnp.asarray(X), jnp.asarray(Y), jnp.asarray(v),
+                          jcfg), has_aux=True))(jp)
+    acc, cgt = operators()
+    tl, taux = tc.loss(tp, Xt, Yt, torch.tensor(v), tc.CGLBConfig(
+        max_error=1e30, precond_dtype="float64"), matvec=acc, matvec_cg=cgt)
+    tl.backward()
+    assert taux.cg_steps == 0
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-9)
+    got = {name: prm.raw.grad.numpy() for name, prm in tp.named_params()}
+    want = {".kernel.variance": jg.kernel.variance.raw,
+            ".kernel.lengthscales": jg.kernel.lengthscales.raw,
+            ".inducing_Z": jg.inducing_Z.raw,
+            ".noise_variance": jg.noise_variance.raw}
+    for key, w in want.items():
+        w = np.asarray(w)
+        np.testing.assert_allclose(got[key], w, rtol=0,
+                                   atol=1e-7 * np.max(np.abs(w)),
+                                   err_msg=key)
 
 
 # launch geometry of the CUDA kernels (pure Python, checked on the CPU)

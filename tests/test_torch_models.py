@@ -228,6 +228,40 @@ def test_chol_retry_with_larger_jitter():
     torch.testing.assert_close(Li @ L, torch.eye(3, dtype=P.dtype))
 
 
+def test_prediction_solves_again_in_fp64_where_fp32_cg_fails(rng,
+                                                             monkeypatch):
+    """Where CG with the fp32 preconditioner ends above the tolerance (it
+    diverges at large variance / noise), the prediction solves again from
+    v0 with the fp64 preconditioner: the result is then exactly the fp64
+    configuration's; where it converges, nothing runs again."""
+    X, Y, Z = _data(rng, n=200)
+    _, tp = _params("Matern32", X, Z)
+    Xt, Yt, Xs = (torch.tensor(a) for a in (X, Y, rng.normal(size=(30, 3))))
+    real, seen, fail = tcg.preconditioned_cg, [], [True]
+
+    def recorded(matvec, b, v0, P, tol, *args):
+        v, stats = real(matvec, b, v0, P, tol, *args)
+        seen.append(P.A.dtype)
+        if fail[0] and P.A.dtype == torch.float32:  # as a diverged run ends
+            return 1e3 * v, stats._replace(residual_error=1.5e6)
+        return v, stats
+
+    def predict(cfg):
+        seen.clear()
+        return tc.predict_f(tp, Xt, Yt, tc.init_v0(200), Xs, cfg)
+
+    monkeypatch.setattr(tcg, "preconditioned_cg", recorded)
+    got = predict(tc.CGLBConfig())
+    assert seen == [torch.float32, torch.float64]
+    want = predict(tc.CGLBConfig(precond_dtype="float64"))
+    assert seen == [torch.float64]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    fail[0] = False
+    predict(tc.CGLBConfig())
+    assert seen == [torch.float32]
+
+
 @pytest.mark.parametrize("family", FAMILIES)
 def test_predict_matches_jax(rng, family):
     X, Y, Z = _data(rng, n=200)
