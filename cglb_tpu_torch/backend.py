@@ -18,6 +18,14 @@ is the JAX package's dispatch-bounded Adam (``cglb_tpu/parallel/dispatch.py``):
 the port's CG already returns to the host every iteration, so that step is
 the one-call loss, and k > 0 only logs each step's CG stats as the bounded
 loop does.
+
+``Torch(mesh=...)`` (a ``parallel.mesh.DataMesh``, from :func:`make_mesh`)
+runs the CGLB and SGPR losses, metrics and the CGLB prediction's CG
+column-sharded over the ranks (``parallel/sharded.py``), on the dense block
+or kernels 1-2 as above, with the accurate tier throughout, as the JAX
+package's ``--mesh`` does (``cglb_tpu/backend.py:131-146, 189-209``); the
+exact GPs run whole on every rank.  Every rank runs the same optimizer on
+the same replicated parameters; only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -37,6 +45,9 @@ from .models.cglb import CGLBConfig as _RunCfg
 from .models.gaussian import predict_log_density as _pld
 from .ops import kernels as _k
 from .ops import matvec as _mv
+from .parallel import mesh as _pmesh
+from .parallel import sharded as _sharded
+from .parallel import streaming as _pstream
 from .transforms import Param as _Param
 from .utils import flatten as _fl
 from .utils import metrics as _metrics
@@ -44,11 +55,20 @@ from .utils import serialization as _ser
 from .utils import training as _training
 from .utils.logging import Logger
 
-__all__ = ["Model", "Torch", "resolve_device"]
+__all__ = ["Model", "Torch", "make_mesh", "resolve_device"]
 
 _CGLB_KINDS = {"cglb": "jensen", "cglbn2m": "n2m", "cglbnm2": "nm2"}
 _SGPR_KINDS = ("sgpr", "sgprn2m")
 _GPR_KINDS = ("gpr", "exactgp")
+
+
+def make_mesh(size: int, device, backend: str = None):
+    """The DataMesh of ``--mesh size`` over this process's group (None for
+    0 or 1: one process; -1: the whole group).  Raises where the group's
+    size differs, or where NCCL would give this rank no card of its own."""
+    if size in (0, 1):
+        return None
+    return _pmesh.data_mesh(size, device, backend)
 
 
 def resolve_device(device) -> torch.device:
@@ -71,12 +91,16 @@ class Model:
 
     def __init__(self, kind: str, params,
                  data: Tuple[torch.Tensor, torch.Tensor],
-                 run_cfg: Optional[_RunCfg] = None, matvec: str = "auto"):
+                 run_cfg: Optional[_RunCfg] = None, matvec: str = "auto",
+                 mesh=None):
         self.kind = kind
         self.params = params
         self.data = data
         self.run_cfg = run_cfg
         self.matvec_mode = matvec
+        # the ranks' DataMesh: CGLB and SGPR work column-sharded over it,
+        # and only rank 0 writes files
+        self.mesh = mesh
         X, Y = data
         self.v0 = None
         if kind in _CGLB_KINDS:
@@ -98,6 +122,11 @@ class Model:
         cfg = self.run_cfg
         return (cfg is not None and cfg.joint_optimization
                 and not cfg.vzero)
+
+    @property
+    def writes(self) -> bool:
+        """This process writes the run's files (rank 0, or no mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     @property
     def streaming(self) -> bool:
@@ -131,9 +160,10 @@ class Model:
             return fn
         if self.kind in _SGPR_KINDS:
             bound = _sgpr.elbo if self.kind == "sgpr" else _sgpr.elbo_n2m
+            mesh = self.mesh
 
             def fn(params, state):
-                return -bound(params, X, Y), state
+                return -bound(params, X, Y, mesh=mesh), state
 
             return fn
         # fp32 CG tier only in the loose training regime: its operator error
@@ -157,6 +187,7 @@ class Model:
         cfg = self.run_cfg
         streaming = self.streaming
         joint = self.joint
+        mesh = self.mesh
 
         def fn(params, carry, max_error=None):
             v0 = carry.v if isinstance(carry, _cglb.CGLBAux) else carry
@@ -164,6 +195,10 @@ class Model:
                 # trainable v: read from the parameter module so that the
                 # gradient flows into it through the bound assembly
                 v0 = params.v0.value
+            if mesh is not None:  # the accurate tier throughout
+                return _sharded.sharded_cglb_loss(
+                    params, X, Y, v0, cfg, mesh,
+                    matvec=self._operator_mode(), max_error=max_error)
             matvec = matvec_cg = None
             if streaming:
                 matvec, cg_tier = _mv.make_streaming_operator_pair(
@@ -173,6 +208,9 @@ class Model:
                               matvec_cg=matvec_cg, max_error=max_error)
 
         return fn
+
+    def _operator_mode(self) -> str:
+        return "streaming" if self.streaming else "dense"
 
     def carry_in(self):
         if self.kind == "exactgp":
@@ -198,11 +236,12 @@ class Model:
 
     @torch.no_grad()
     def elbo(self) -> float:
-        return float(_sgpr.elbo(self.params, *self.data))
+        return float(_sgpr.elbo(self.params, *self.data, mesh=self.mesh))
 
     @torch.no_grad()
     def upper_bound(self) -> float:
-        return float(_sgpr.upper_bound(self.params, *self.data))
+        return float(_sgpr.upper_bound(self.params, *self.data,
+                                       mesh=self.mesh))
 
     @torch.no_grad()
     def lml(self) -> float:
@@ -250,19 +289,27 @@ class Model:
             def batch(xs):
                 return _sgpr.predict_from_cache(p, cache, xs)
         else:
+            mesh = self.mesh
             matvec = None
-            if self.streaming:
+            if mesh is not None:
+                matvec = _sharded.sharded_operator(
+                    mesh, p.kernel, X, p.noise_variance.value,
+                    self._operator_mode())
+            elif self.streaming:
                 matvec = _mv.make_streaming_operator(p.kernel, X,
                                                      p.noise_variance.value)
             v0 = p.v0.value if self.joint else self.v0
             cache = _cglb.predict_prepare(p, X, Y, v0, self.run_cfg,
                                           cg_tolerance=cg_tolerance,
-                                          matvec=matvec)
+                                          matvec=matvec, mesh=mesh)
 
             def batch(xs):
                 cross = None
                 if self.streaming:
                     def cross(v):
+                        if mesh is not None:
+                            return _pstream.sharded_cross_matvec(
+                                mesh, p.kernel, X, xs, v)
                         return _mv.kernel_cross_matvec(p.kernel, X, xs, v)
                 return _cglb.predict_from_cache(p, cache, X, xs,
                                                 cross_matvec=cross)
@@ -278,13 +325,17 @@ class Model:
 
 
 class Torch:
-    """Backend facade with the verbs of cglb_tpu/backend.py's ``Jax``."""
+    """Backend facade with the verbs of cglb_tpu/backend.py's ``Jax``.
+    ``mesh``: this rank's DataMesh (:func:`make_mesh`; its device is the
+    rank's), the counterpart of the Jax facade's ``configure_backend(mesh=)``
+    state."""
 
     name = "torch"
 
     def __init__(self, device="cuda", matvec: str = "auto",
-                 max_cg_iters: int = 100):
-        self.device = resolve_device(device)
+                 max_cg_iters: int = 100, mesh=None):
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.device)
         self.matvec_mode = matvec
         self.max_cg_iters = int(max_cg_iters)
 
@@ -326,7 +377,10 @@ class Torch:
             params = _gpr.GPRParams(kernel,
                                     noise_variance=p["noise_variance"],
                                     output_dim=Y.shape[1], device=self.device)
-            return Model(kind, params, (X, Y), matvec=self.matvec_mode)
+            # the exact GPs run whole on every rank (the mesh only says who
+            # writes)
+            return Model(kind, params, (X, Y), matvec=self.matvec_mode,
+                         mesh=self.mesh)
         Z = p["inducing_variable"](kernel, seed=seed)
         params = _sgpr.SGPRParams(kernel, Z, noise_variance=p["noise_variance"],
                                   output_dim=Y.shape[1], device=self.device)
@@ -337,7 +391,8 @@ class Torch:
                               vzero=p["vzero"],
                               logdet_variant=_CGLB_KINDS[kind],
                               max_cg_iters=self.max_cg_iters)
-        return Model(kind, params, (X, Y), run_cfg, matvec=self.matvec_mode)
+        return Model(kind, params, (X, Y), run_cfg, matvec=self.matvec_mode,
+                     mesh=self.mesh)
 
     @staticmethod
     def model_parameters(model: Model) -> Dict[str, np.ndarray]:
@@ -345,11 +400,15 @@ class Torch:
 
     @staticmethod
     def save(model: Model, logdir) -> None:
-        _ser.save_model_params(model.parameter_dict(), logdir)
+        if model.writes:
+            _ser.save_model_params(model.parameter_dict(), logdir)
 
     @staticmethod
     def save_checkpoint(model: Model, logdir, extra: Dict = None) -> None:
-        """Full-state checkpoint: parameters and the CG warm start."""
+        """Full-state checkpoint: parameters and the CG warm start (rank 0
+        writes; every rank reads it on resume)."""
+        if not model.writes:
+            return
         v0 = None if model.v0 is None else model.v0.detach().cpu().numpy()
         _ser.save_checkpoint(logdir, model.parameter_dict(), v0=v0,
                              extra={"kind": model.kind, **(extra or {})})

@@ -20,14 +20,24 @@ and ``baseline mean|linear`` a ``results.json``, as the JAX CLI does.
 ``--device`` (default ``cuda``) is new; ``--common-dtype mixed`` is an alias of
 float64.  ``--dispatch-bound K`` is accepted: the port's CG returns to the
 host every iteration, so every ``adam_<lr>`` step is already bounded, and
-K > 0 logs each step's CG stats as the JAX CLI's bounded loop does.  What is
-not ported yet parses and then fails naming its ROADMAP queue: ``--mesh``
-above 1.
+K > 0 logs each step's CG stats as the JAX CLI's bounded loop does.
+
+``--mesh N`` (N > 1, or -1 for one rank a card) trains data-parallel over N
+ranks of ``torch.distributed`` (``parallel/``): a process that is a rank
+already (under ``torchrun``, or with ``CGLB_COORDINATOR``,
+``CGLB_NUM_PROCESSES`` and ``CGLB_PROCESS_ID``) joins the group; otherwise
+the CLI starts N ranks of itself on a local TCP rendezvous and exits with
+the first non-zero exit code of a rank.  NCCL on CUDA, one card a rank (N
+above the visible cards fails); ``--dist-backend gloo`` lets ranks share
+cards; ``--device cpu`` runs gloo ranks on the CPU.  Only rank 0 writes into
+LOGDIR.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 from dataclasses import dataclass
 from pathlib import Path
 from typing import List, Optional
@@ -35,7 +45,8 @@ from typing import List, Optional
 import numpy as np
 
 from .. import config as _config
-from ..backend import Torch
+from ..backend import Torch, make_mesh
+from ..parallel import mesh as _pmesh
 from ..configs import (GPR_CONFIGS, INDUCING_VARIABLE_CONFIGS,
                        KERNEL_CONFIGS, SGPR_CONFIGS)
 from ..utils.logging import Logger
@@ -92,7 +103,9 @@ class _Action:
             done = int(model.last_checkpoint_extra.get("iters_done", 0))
             num_steps = max(num_steps - done, 0)
         metrics_fn = backend.metrics_fn(model, datasets)
-        logger = Logger(logdir, metrics_fn,
+        # every rank evaluates the metrics (they hold collectives); rank 0
+        # alone keeps the event file
+        logger = Logger(logdir if model.writes else None, metrics_fn,
                         lambda: backend.model_parameters(model),
                         self.holdout_interval, include_feval_log=True)
         try:
@@ -125,15 +138,17 @@ class _Action:
                 # the mean is dominated by line-search probes at extreme
                 # hyperparameters; the median is the central tendency
                 train_stats[f"{key}_train_median"] = float(np.median(finite))
-        dump_json({**metrics_fn(), **train_stats, **meta},
-                  Path(logdir, "results.json"))
-        dump_json({**logger.logs, **meta}, Path(logdir, "logs.json"))
+        results = {**metrics_fn(), **train_stats, **meta}
+        if model.writes:
+            dump_json(results, Path(logdir, "results.json"))
+            dump_json({**logger.logs, **meta}, Path(logdir, "logs.json"))
 
     def _metric(self, model) -> None:
         results = self.backend.metrics_fn(model, self.dataset.to_tuple())()
         results["id"] = str(self.metric_dst.parent)
         results["data"] = self.dataset.provenance
-        np.save(self.metric_dst, results)
+        if model.writes:
+            np.save(self.metric_dst, results)
 
 
 def _add_leaves(group: argparse.ArgumentParser) -> None:
@@ -174,7 +189,11 @@ def build_parser() -> argparse.ArgumentParser:
                     default=None, help="alias: --keops == --matvec streaming")
     ap.add_argument("--common-dtype", choices=["float64", "mixed"],
                     default="mixed", help="mixed is an alias of float64")
-    ap.add_argument("--mesh", type=int, default=0)
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="data-parallel CGLB over N ranks (-1: one a card)")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                    help="default: nccl on cuda, gloo on cpu; gloo on cuda "
+                         "lets ranks share a card")
     ap.add_argument("--max-cg-iters", type=int, default=100)
     ap.add_argument("--dispatch-bound", type=int, default=0,
                     help="adam_* on cglb: log each step's CG stats (CG "
@@ -222,19 +241,42 @@ def _model_config(args):
     return cls(kernel, iv)
 
 
-def _unported(args) -> Optional[str]:
-    if args.mesh not in (0, 1):
-        return ("--mesh (multi-GPU over NCCL, the next slice: ROADMAP.md "
-                "queue 1)")
-    return None
+def _start_ranks(parser, args, argv: Optional[List[str]]) -> None:
+    """Run this command line as ``--mesh`` ranks of a local group; exit
+    with the first non-zero exit code of a rank."""
+    try:
+        world = _pmesh.plan_ranks(args.mesh, args.device, args.dist_backend)
+    except (ValueError, RuntimeError) as err:
+        parser.error(str(err))
+    env = dict(os.environ)
+    root = str(Path(__file__).resolve().parents[2])
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    if args.device == "cpu":  # the ranks share the host's cores
+        env.setdefault("OMP_NUM_THREADS",
+                       str(max(1, (os.cpu_count() or 1) // world)))
+    cmd = [sys.executable, "-m", "cglb_tpu_torch.experiments.cli"] + list(
+        sys.argv[1:] if argv is None else argv)
+    print(f"--mesh {args.mesh}: {world} ranks, "
+          f"{_pmesh.resolve_backend(args.device, args.dist_backend)} on "
+          f"{args.device}", file=sys.stderr, flush=True)
+    try:
+        _pmesh.run_ranks(cmd, world, env=env)
+    except _pmesh.RankFailed as err:
+        print(f"cglb_tpu_torch.experiments.cli: {err}", file=sys.stderr)
+        raise SystemExit(err.returncode)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    unported = _unported(args)
-    if unported:
-        parser.error(f"{unported} is not ported to cglb_tpu_torch yet")
+    mesh = None
+    if args.mesh not in (0, 1):
+        if not _pmesh.in_launched_rank():
+            _start_ranks(parser, args, argv)
+            return
+        mesh = make_mesh(args.mesh, args.device, args.dist_backend)
+        print(f"--mesh: {mesh.describe()}", file=sys.stderr, flush=True)
     logdir = Path(args.logdir).expanduser().resolve()
     logdir.mkdir(exist_ok=True, parents=True)
     Torch.set_default_float(args.float_type)
@@ -250,14 +292,15 @@ def main(argv: Optional[List[str]] = None) -> None:
         results = fns[args.baseline](dataset)
         results["id"] = args.baseline
         results["data"] = dataset.provenance
-        dump_json(results, Path(logdir, "results.json"))
+        if mesh is None or mesh.rank == 0:
+            dump_json(results, Path(logdir, "results.json"))
         return
     matvec = args.matvec
     if args.keops is not None:
         matvec = "streaming" if args.keops else "dense"
     # --common-dtype: both values run fp64 common terms (native on the card)
     backend = Torch(device=args.device, matvec=matvec,
-                    max_cg_iters=args.max_cg_iters)
+                    max_cg_iters=args.max_cg_iters, mesh=mesh)
     common = dict(backend=backend, seed=args.seed, logdir=str(logdir),
                   dataset=dataset)
     if args.command == "train":

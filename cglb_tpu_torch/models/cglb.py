@@ -24,6 +24,13 @@ the common terms go by column chunks (models/sgpr.py), A is kept only in the
 preconditioner's dtype and, by default there, each chunk is recomputed in
 the backward (``remat_common_terms``, cglb_tpu/models/cglb.py:222-265); the
 predictor's A @ res then comes from ``sgpr.kuf_weighted``.
+
+With ``mesh`` (a ``parallel.mesh.DataMesh``; ``parallel/sharded.py`` is the
+entry point) the same functions run column-sharded over the ranks: the common
+terms, the preconditioner's A and the n2m trace hold the rank's columns and
+are summed or gathered through the mesh, the matvec is the caller's sharded
+operator, and CG runs on every rank on replicated vectors; its step counts
+are compared across the ranks at the end of every solve.
 """
 
 from __future__ import annotations
@@ -81,7 +88,7 @@ def init_v0(N: int, output_dim: int = 1, dtype=None, device=None):
 
 
 def _logdet_bound(params: SGPRParams, ct: CommonTerms, X, Y,
-                  variant: str) -> torch.Tensor:
+                  variant: str, mesh=None) -> torch.Tensor:
     """Upper bounds on 0.5 log|K + sigma^2 I| (negated), three variants."""
     N, D = Y.shape
     sigma_sq = params.noise_variance.value
@@ -100,12 +107,13 @@ def _logdet_bound(params: SGPRParams, ct: CommonTerms, X, Y,
         return -(log_det_q + 0.5 * trace)
     if variant == "n2m":
         # log|Q| + n log(tr(Q^-1 K)/n); K(X, X) is materialized
-        return -(log_det_q + 0.5 * n2m_log_trace(params, ct, X))
+        return -(log_det_q + 0.5 * n2m_log_trace(params, ct, X, mesh))
     raise ValueError(f"unknown logdet variant {variant!r}")
 
 
 def _make_precond(ct: CommonTerms, sigma_sq, cfg: CGLBConfig,
-                  consistent_ct: bool = True) -> _pc.NystromPreconditioner:
+                  consistent_ct: bool = True,
+                  mesh=None) -> _pc.NystromPreconditioner:
     """Nystrom preconditioner in cfg.precond_dtype.
 
     LB is re-derived from the SAME cast A the preconditioner applies: the
@@ -115,16 +123,29 @@ def _make_precond(ct: CommonTerms, sigma_sq, cfg: CGLBConfig,
     in the preconditioner's fp32 beside an fp64 LB)."""
     pd = _config.torch_dtype(cfg.precond_dtype)
     if consistent_ct and ct.A.dtype == pd and ct.LB.dtype == pd:
-        return _pc.NystromPreconditioner(A=ct.A, LB=ct.LB, sigma_sq=sigma_sq)
+        return _pc.NystromPreconditioner(A=ct.A, LB=ct.LB, sigma_sq=sigma_sq,
+                                         mesh=mesh)
     A = ct.A.to(pd)
     eye = torch.eye(A.shape[0], dtype=pd, device=A.device)
-    LB, Ci = _chol.chol_inv(A @ A.T + eye)
-    return _pc.NystromPreconditioner(A=A, LB=LB, sigma_sq=sigma_sq, Ci=Ci)
+    AAT = A @ A.T
+    if mesh is not None:
+        AAT = mesh.reduce(AAT)
+    LB, Ci = _chol.chol_inv(AAT + eye)
+    return _pc.NystromPreconditioner(A=A, LB=LB, sigma_sq=sigma_sq, Ci=Ci,
+                                     mesh=mesh)
+
+
+def _same_steps(mesh, stats: _cg.CGStats) -> None:
+    """Every rank ran the same CG iterations (a mismatch would leave the
+    ranks' collectives out of step)."""
+    if mesh is not None:
+        mesh.check_same(stats.steps, "CG steps")
 
 
 def _quad_form_bound(params: SGPRParams, ct: CommonTerms, X, Y, v0,
                      cfg: CGLBConfig, matvec=None, max_error=None,
-                     matvec_cg=None) -> Tuple[torch.Tensor, CGLBAux]:
+                     matvec_cg=None, mesh=None
+                     ) -> Tuple[torch.Tensor, CGLBAux]:
     """-ub on 0.5 err^T (K+s2I)^-1 err, plus the new warm start.
 
     matvec_cg: an optional cheaper operator for the CG iterations only.  The
@@ -134,7 +155,7 @@ def _quad_form_bound(params: SGPRParams, ct: CommonTerms, X, Y, v0,
     err_t = (Y - mean_apply(params.mean, X)).T  # [D, N]
     if matvec is None:
         matvec = make_dense_operator(params.kernel, X, sigma_sq)
-    P = _make_precond(ct, sigma_sq, cfg)
+    P = _make_precond(ct, sigma_sq, cfg, mesh=mesh)
 
     if cfg.v_is_external:
         v = v0  # fixed zeros, or a trainable value the gradient flows into
@@ -144,6 +165,7 @@ def _quad_form_bound(params: SGPRParams, ct: CommonTerms, X, Y, v0,
             matvec_cg if matvec_cg is not None else matvec, err_t.detach(),
             v0, P, cfg.max_error if max_error is None else max_error,
             cfg.max_cg_iters, cfg.restart_cg_iters)
+        _same_steps(mesh, stats)
 
     Kv = matvec(v)
     r = err_t - Kv
@@ -155,14 +177,14 @@ def _quad_form_bound(params: SGPRParams, ct: CommonTerms, X, Y, v0,
 
 
 def _common_terms(params: SGPRParams, X, cfg: CGLBConfig, jitter,
-                  chunk_size, remat) -> CommonTerms:
+                  chunk_size, remat, mesh=None) -> CommonTerms:
     """The common terms; where they go by column chunks (models/sgpr.py
     decides), A is built in the preconditioner's dtype, except for n2m,
     whose trace needs A in fp64."""
     a_dtype = (None if cfg.logdet_variant == "n2m"
                else _config.torch_dtype(cfg.precond_dtype))
     return common_terms(params, X, jitter, chunk_size=chunk_size,
-                        remat=remat, a_dtype=a_dtype)
+                        remat=remat, a_dtype=a_dtype, mesh=mesh)
 
 
 def bound(params: SGPRParams, X, Y, v0, cfg: CGLBConfig = CGLBConfig(),
@@ -170,21 +192,27 @@ def bound(params: SGPRParams, X, Y, v0, cfg: CGLBConfig = CGLBConfig(),
           matvec_cg: Optional[Callable] = None,
           max_error: Optional[float] = None,
           remat_common_terms: bool = True,
-          chunk_size: Optional[int] = None) -> Tuple[torch.Tensor, CGLBAux]:
+          chunk_size: Optional[int] = None,
+          mesh=None) -> Tuple[torch.Tensor, CGLBAux]:
     """The CGLB lower bound on log p(Y|X) and the CG aux.
 
     chunk_size: columns per chunk of the common terms (default: by size,
-    models/sgpr.py ``chunk_width``).  remat_common_terms: where they are
-    chunked, recompute each chunk in the backward instead of storing its
-    Kuf, e and A (chunked by size, storing them would hold what chunking
-    saves)."""
+    models/sgpr.py ``chunk_width``; under a mesh, of the rank's columns).
+    remat_common_terms: where they are chunked, recompute each chunk in the
+    backward instead of storing its Kuf, e and A (chunked by size, storing
+    them would hold what chunking saves).  mesh: column-sharded over its
+    ranks; ``matvec`` must then be a sharded operator
+    (``parallel/sharded.py``)."""
+    if mesh is not None and matvec is None:
+        raise ValueError("a mesh needs the sharded operator as matvec")
     N, D = Y.shape
     ct = _common_terms(params, X, cfg, jitter, chunk_size,
-                       remat_common_terms)
+                       remat_common_terms, mesh)
     b = -0.5 * N * D * math.log(2.0 * math.pi)
-    b = b + _logdet_bound(params, ct, X, Y, cfg.logdet_variant)
+    b = b + _logdet_bound(params, ct, X, Y, cfg.logdet_variant, mesh)
     quad, aux = _quad_form_bound(params, ct, X, Y, v0, cfg, matvec,
-                                 max_error=max_error, matvec_cg=matvec_cg)
+                                 max_error=max_error, matvec_cg=matvec_cg,
+                                 mesh=mesh)
     return b + quad, aux
 
 
@@ -193,12 +221,13 @@ def loss(params: SGPRParams, X, Y, v0, cfg: CGLBConfig = CGLBConfig(),
          matvec_cg: Optional[Callable] = None,
          max_error: Optional[float] = None,
          remat_common_terms: bool = True,
-         chunk_size: Optional[int] = None) -> Tuple[torch.Tensor, CGLBAux]:
+         chunk_size: Optional[int] = None,
+         mesh=None) -> Tuple[torch.Tensor, CGLBAux]:
     """Training loss = -bound; aux carries the warm start and CG stats."""
     b, aux = bound(params, X, Y, v0, cfg, jitter, matvec,
                    matvec_cg=matvec_cg, max_error=max_error,
                    remat_common_terms=remat_common_terms,
-                   chunk_size=chunk_size)
+                   chunk_size=chunk_size, mesh=mesh)
     return -b, aux
 
 
@@ -217,7 +246,8 @@ def predict_prepare(params: SGPRParams, X, Y, v0,
                     cfg: CGLBConfig = CGLBConfig(),
                     cg_tolerance: Optional[float] = 1e-3,
                     jitter: float = None,
-                    matvec: Optional[Callable] = None) -> PredictCache:
+                    matvec: Optional[Callable] = None,
+                    mesh=None) -> PredictCache:
     """Common terms, the CG solve at ``cg_tolerance`` (None, vzero and the
     joint v reuse v0 as is) and the [M, D] residual projection, once.
     Where CG with an fp32 preconditioner ends above the tolerance, the solve
@@ -227,11 +257,14 @@ def predict_prepare(params: SGPRParams, X, Y, v0,
     solves at the end of the kin40k scipy4 run), and a v that far off makes
     the predictive mean wrong.  Where the common terms were
     chunked and A is held in the preconditioner's dtype, A @ res is
-    ``kuf_weighted``'s, so that no fp64 [M, N] is held."""
+    ``kuf_weighted``'s, so that no fp64 [M, N] is held.  With ``mesh`` as
+    in :func:`bound` (``matvec`` its sharded operator)."""
+    if mesh is not None and matvec is None:
+        raise ValueError("a mesh needs the sharded operator as matvec")
     sigma_sq = params.noise_variance.value
     sigma = torch.sqrt(sigma_sq)
     err = Y - mean_apply(params.mean, X)
-    ct = _common_terms(params, X, cfg, jitter, None, False)
+    ct = _common_terms(params, X, cfg, jitter, None, False, mesh)
     if matvec is None:
         matvec = make_dense_operator(params.kernel, X, sigma_sq)
     if cg_tolerance is None or cfg.v_is_external:
@@ -239,17 +272,20 @@ def predict_prepare(params: SGPRParams, X, Y, v0,
     else:
         # the configured preconditioner, then fp64 if that one failed
         for dtype in dict.fromkeys((cfg.precond_dtype, "float64")):
-            P = _make_precond(ct, sigma_sq, replace(cfg, precond_dtype=dtype))
+            P = _make_precond(ct, sigma_sq, replace(cfg, precond_dtype=dtype),
+                              mesh=mesh)
             v, stats = _cg.preconditioned_cg(matvec, err.T, v0, P,
                                              cg_tolerance, cfg.max_cg_iters,
                                              cfg.restart_cg_iters)
+            _same_steps(mesh, stats)
             if stats.residual_error <= cg_tolerance:
                 break
     res = err - matvec(v).T  # [N, D]
     if ct.A.dtype == X.dtype:
-        Ares = ct.A @ res
+        Ares = (ct.A @ res if mesh is None
+                else mesh.reduce(ct.A @ mesh.shard(res, 0)))
     else:  # chunked, A in the preconditioner's dtype
-        Ares = kuf_weighted(params, ct.L, X, res, sigma)
+        Ares = kuf_weighted(params, ct.L, X, res, sigma, mesh=mesh)
     c = torch.linalg.solve_triangular(ct.LB, Ares, upper=False) / sigma
     return PredictCache(v=v, c=c, L=ct.L, LB=ct.LB)
 

@@ -32,7 +32,9 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import config as _config
 from ..ops import chol as _chol
+from ..ops.kernels import k_columns
 from ..ops.kuf import kuf as _kuf
+from ..ops.kuf import kuf_of
 from ..transforms import Param, ParamModule
 from .gaussian import ConstantMean, mean_apply
 
@@ -123,7 +125,7 @@ def _chunks(N: int, width: int):
 
 def _kuf_terms(params: SGPRParams, L, X, sigma_scale, W=None,
                chunk_size: int = None, remat: bool = False, a_dtype=None,
-               with_a: bool = True):
+               with_a: bool = True, mesh=None):
     """A = L^-1 Kuf / sigma_scale (None unless ``with_a``), A A^T and
     optionally A @ W.
 
@@ -132,68 +134,100 @@ def _kuf_terms(params: SGPRParams, L, X, sigma_scale, W=None,
     X's; one pass keeps X's); ``remat`` recomputes each chunk in the
     backward instead of storing its Kuf, e and A.  The last chunk is
     narrower where the width does not divide N.  A consumer that needs A in
-    X's dtype after a chunked build reads it from :func:`kuf_weighted`."""
-    N, M = X.shape[0], params.num_inducing
+    X's dtype after a chunked build reads it from :func:`kuf_weighted`.
+
+    With ``mesh`` (a ``parallel.mesh.DataMesh``) each rank takes its block of
+    X's and W's columns (chunked inside the block), A is the rank's columns
+    and A A^T and A W are summed over the ranks
+    (``cglb_tpu/parallel/sharded.py:73-129``)."""
+    M = params.num_inducing
+    kern = params.kernel
+    Z, ls, var = (params.inducing_Z.value, kern.lengthscales.value,
+                  kern.variance.value)
+    if mesh is not None:
+        c0, c1 = mesh.cols(X.shape[0])
+        X = X[c0:c1]
+        W = None if W is None else mesh.shard(W, 0)
+        Z, ls, var, L, sigma_scale = (mesh.enter(t) for t in (
+            Z, ls, var, L, sigma_scale))
+    N = X.shape[0]
     width = chunk_width(N, M, chunk_size)
     a_dtype = X.dtype if width is None else (a_dtype or X.dtype)
 
     def terms(xc, wc):
-        kuf = _kuf(params.kernel, params.inducing_Z.value, xc)
+        kuf = kuf_of(Z, ls, var, xc, kern.family)
         a = _solve_lower(L, kuf) / sigma_scale
         return (a.to(a_dtype) if with_a else None, a @ a.T,
                 None if wc is None else a @ wc)
 
     if width is None:
-        return terms(X, W)
-    parts, AAT, AW = [], None, None
-    for c0, c1 in _chunks(N, width):
-        wc = None if W is None else W[c0:c1]
-        if remat and torch.is_grad_enabled():
-            a, aat, aw = checkpoint(terms, X[c0:c1], wc, use_reentrant=False)
-        else:
-            a, aat, aw = terms(X[c0:c1], wc)
-        parts.append(a)
-        AAT = aat if AAT is None else AAT + aat
-        if W is not None:
-            AW = aw if AW is None else AW + aw
-    # column-major, as the one pass's triangular solve leaves A: the fp32
-    # products on it (the preconditioner's) then round as they do there
-    A = torch.cat([a.mT for a in parts]).mT if with_a else None
+        A, AAT, AW = terms(X, W)
+    else:
+        parts, AAT, AW = [], None, None
+        for c0, c1 in _chunks(N, width):
+            wc = None if W is None else W[c0:c1]
+            if remat and torch.is_grad_enabled():
+                a, aat, aw = checkpoint(terms, X[c0:c1], wc,
+                                        use_reentrant=False)
+            else:
+                a, aat, aw = terms(X[c0:c1], wc)
+            parts.append(a)
+            AAT = aat if AAT is None else AAT + aat
+            if W is not None:
+                AW = aw if AW is None else AW + aw
+        # column-major, as the one pass's triangular solve leaves A: the
+        # fp32 products on it (the preconditioner's) then round as they do
+        # there
+        A = torch.cat([a.mT for a in parts]).mT if with_a else None
+    if mesh is not None:
+        AAT = mesh.reduce(AAT)
+        AW = None if AW is None else mesh.reduce(AW)
     return A, AAT, AW
 
 
 def kuf_weighted(params: SGPRParams, L, X, W, sigma_scale,
-                 chunk_size: int = None) -> torch.Tensor:
+                 chunk_size: int = None, mesh=None) -> torch.Tensor:
     """A @ W = L^-1 (Kuf @ W) / sigma_scale by column chunks of Kuf (sums
-    in chunk order), then one [M, D] solve: no [M, N] beyond a chunk's."""
-    N, M = X.shape[0], params.num_inducing
+    in chunk order), then one [M, D] solve: no [M, N] beyond a chunk's.
+    With ``mesh``: over the rank's columns, Kuf @ W summed over the ranks
+    (the predictor's, outside autograd)."""
+    M = params.num_inducing
     Z = params.inducing_Z.value
+    if mesh is not None:
+        c0, c1 = mesh.cols(X.shape[0])
+        X, W = X[c0:c1], mesh.shard(W, 0)
+    N = X.shape[0]
     width = chunk_width(N, M, chunk_size) or N
     U = None
     for c0, c1 in _chunks(N, width):
         u = _kuf(params.kernel, Z, X[c0:c1]) @ W[c0:c1]
         U = u if U is None else U + u
+    if mesh is not None:
+        U = mesh.reduce(U)
     return _solve_lower(L, U) / sigma_scale
 
 
 def common_terms(params: SGPRParams, X, jitter: float = None,
                  chunk_size: int = None, remat: bool = False,
-                 a_dtype=None) -> CommonTerms:
+                 a_dtype=None, mesh=None) -> CommonTerms:
     """Reference semantics: cglb/backend/tensorflow/models.py:58-75.
-    ``chunk_size``, ``remat`` and ``a_dtype`` as in :func:`_kuf_terms`."""
+    ``chunk_size``, ``remat``, ``a_dtype`` and ``mesh`` as in
+    :func:`_kuf_terms` (with a mesh, A is the rank's columns)."""
     jitter = _jitter(jitter)
     M = params.num_inducing
     sigma = torch.sqrt(params.noise_variance.value)
     L = _kuu_chol(params, jitter)
     A, AAT, _ = _kuf_terms(params, L, X, sigma, chunk_size=chunk_size,
-                           remat=remat, a_dtype=a_dtype)
+                           remat=remat, a_dtype=a_dtype, mesh=mesh)
     B = AAT + torch.eye(M, dtype=X.dtype, device=X.device)
     LB = _chol.cholesky(B)
     return CommonTerms(A=A, AAT=AAT, B=B, LB=LB, L=L)
 
 
-def elbo(params: SGPRParams, X, Y, jitter: float = None) -> torch.Tensor:
-    """Titsias (2009) collapsed ELBO."""
+def elbo(params: SGPRParams, X, Y, jitter: float = None,
+         mesh=None) -> torch.Tensor:
+    """Titsias (2009) collapsed ELBO (``mesh``: A A^T and A err summed over
+    the ranks' columns)."""
     jitter = _jitter(jitter)
     err = Y - mean_apply(params.mean, X)
     N, D = Y.shape
@@ -202,7 +236,7 @@ def elbo(params: SGPRParams, X, Y, jitter: float = None) -> torch.Tensor:
     sigma = torch.sqrt(sigma_sq)
     L = _kuu_chol(params, jitter)
     _, AAT, Aerr = _kuf_terms(params, L, X, sigma, W=err, remat=True,
-                              with_a=False)
+                              with_a=False, mesh=mesh)
     LB = _chol.cholesky(AAT + torch.eye(M, dtype=X.dtype, device=X.device))
     c = _solve_lower(LB, Aerr) / sigma
 
@@ -217,17 +251,35 @@ def elbo(params: SGPRParams, X, Y, jitter: float = None) -> torch.Tensor:
     return bound
 
 
-def n2m_log_trace(params: SGPRParams, ct: CommonTerms, X) -> torch.Tensor:
+def n2m_log_trace(params: SGPRParams, ct: CommonTerms, X,
+                  mesh=None) -> torch.Tensor:
     """N log(tr(Q^-1 (K + s2 I)) / N) of the n2m variants, with
     C = LB^-1 A and tr(Q^-1 (K + s2 I)) = (tr(K + s2 I) - tr(C (K + s2 I)
     C^T)) / s2.  The s2 I part of both traces is added in closed form, so
-    K + s2 I is not formed beside K."""
+    K + s2 I is not formed beside K.  With ``mesh`` (ct.A the rank's
+    columns) each rank forms its columns of K and of C, and the traces are
+    summed over the ranks."""
     N = X.shape[0]
     sigma_sq = params.noise_variance.value
-    K = params.kernel.K(X)
-    C = _solve_lower(ct.LB, ct.A)
-    trace_kff = torch.trace(K) + N * sigma_sq
-    trace_qrest = torch.sum((C @ K) * C) + sigma_sq * torch.sum(C * C)
+    if mesh is None:
+        K = params.kernel.K(X)
+        C = _solve_lower(ct.LB, ct.A)
+        trace_k = torch.trace(K)
+        trace_ckc = torch.sum((C @ K) * C)
+        trace_cc = torch.sum(C * C)
+    else:
+        c0, c1 = mesh.cols(N)
+        kern = params.kernel
+        Kc = k_columns(kern, X, c0, c1, mesh.enter(kern.lengthscales.value),
+                       mesh.enter(kern.variance.value))
+        Cc = _solve_lower(mesh.enter(ct.LB), ct.A)
+        # all of C enters the rank's product C @ Kc
+        C = mesh.enter(mesh.gather(Cc, N, 1))
+        trace_k = mesh.reduce(torch.trace(Kc[c0:c1]))
+        trace_ckc = mesh.reduce(torch.sum((C @ Kc) * Cc))
+        trace_cc = mesh.reduce(torch.sum(Cc * Cc))
+    trace_kff = trace_k + N * sigma_sq
+    trace_qrest = trace_ckc + sigma_sq * trace_cc
     # trace_kff - trace_qrest >= N sigma^2 mathematically (K >= Q); clamped
     # at that minimum so that cancellation at large M can neither NaN the
     # log nor blow the N-scaled term up
@@ -236,29 +288,32 @@ def n2m_log_trace(params: SGPRParams, ct: CommonTerms, X) -> torch.Tensor:
                 - math.log(N) - torch.log(sigma_sq))
 
 
-def elbo_n2m(params: SGPRParams, X, Y, jitter: float = None
-             ) -> torch.Tensor:
+def elbo_n2m(params: SGPRParams, X, Y, jitter: float = None,
+             mesh=None) -> torch.Tensor:
     """SGPRN2M: the SGPR bound with the trace term replaced by the N^2 M
     log-trace term -0.5 n log(tr(Q^-1 K)/n).  Materializes K(X, X): O(N^2)
-    memory, an ablation."""
-    ct = common_terms(params, X, jitter)
+    memory, an ablation (``mesh``: the rank's columns of it)."""
+    ct = common_terms(params, X, jitter, mesh=mesh)
     err = Y - mean_apply(params.mean, X)
     N, D = Y.shape
     sigma_sq = params.noise_variance.value
     sigma = torch.sqrt(sigma_sq)
-    c = _solve_lower(ct.LB, ct.A @ err) / sigma
+    Aerr = (ct.A @ err if mesh is None
+            else mesh.reduce(ct.A @ mesh.shard(err, 0)))
+    c = _solve_lower(ct.LB, Aerr) / sigma
 
     bound = -0.5 * N * D * math.log(2.0 * math.pi)
     bound = bound - D * torch.sum(torch.log(torch.diagonal(ct.LB)))
     bound = bound - 0.5 * N * D * torch.log(sigma_sq)
     bound = bound - 0.5 * torch.sum(torch.square(err)) / sigma_sq
     bound = bound + 0.5 * torch.sum(torch.square(c))
-    return bound - 0.5 * n2m_log_trace(params, ct, X)
+    return bound - 0.5 * n2m_log_trace(params, ct, X, mesh)
 
 
-def upper_bound(params: SGPRParams, X, Y, jitter: float = None
-                ) -> torch.Tensor:
-    """Titsias trace upper bound on the log marginal likelihood."""
+def upper_bound(params: SGPRParams, X, Y, jitter: float = None,
+                mesh=None) -> torch.Tensor:
+    """Titsias trace upper bound on the log marginal likelihood (``mesh``
+    as in :func:`elbo`)."""
     jitter = _jitter(jitter)
     M = params.num_inducing
     N = X.shape[0]
@@ -268,7 +323,7 @@ def upper_bound(params: SGPRParams, X, Y, jitter: float = None
     one = torch.ones((), dtype=X.dtype, device=X.device)
     L = _kuu_chol(params, jitter)
     _, AAT0, A0err = _kuf_terms(params, L, X, one, W=err, remat=True,
-                                with_a=False)
+                                with_a=False, mesh=mesh)
     LB = _chol.cholesky(eye_m + AAT0 / sigma_sq)
     # trace slack tr(Kff) - tr(Qff) >= 0, clamped against cancellation
     cslack = torch.clamp(

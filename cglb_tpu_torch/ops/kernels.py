@@ -22,7 +22,7 @@ from .. import config as _config
 from ..transforms import Param
 
 __all__ = ["SquaredExponential", "Matern32", "K", "kdiag", "scaled_sq_dist",
-           "make_kernel", "KERNELS", "GAMMA"]
+           "k_columns", "make_kernel", "KERNELS", "GAMMA"]
 
 # family constant folded into the scaled coordinates of the streaming and
 # Kuf kernels: t = gamma * d2, so rho(t) needs no per-entry rescale
@@ -97,6 +97,19 @@ def _sq_dist_self(X, lengthscales):
     # in place: at N = 26800 every N x N temporary is 5.75 GB
     d2.diagonal().zero_()
     return d2
+
+
+def k_columns(kernel: _Stationary, X, c0: int, c1: int, ls, var):
+    """Columns [c0, c1) of K(X, X) from the parameter values ``ls`` and
+    ``var`` (a rank's block; the sharded callers pass them in through
+    ``DataMesh.enter``), with the exact zeros of ``_sq_dist_self`` on the
+    diagonal."""
+    Xs = X / ls
+    xn = torch.sum(Xs * Xs, dim=-1)
+    d2 = torch.clamp(xn[:, None] + xn[None, c0:c1] - 2.0 * (Xs @ Xs[c0:c1].T),
+                     min=0.0)
+    d2[c0:c1].diagonal().zero_()
+    return var * kernel.profile(d2)
 
 
 def K(kernel: _Stationary, X, Z=None):

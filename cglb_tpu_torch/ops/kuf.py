@@ -30,7 +30,7 @@ from . import _build
 from .kernels import GAMMA
 from .matvec import _on_cpu, coord_plan
 
-__all__ = ["kuf", "kuf_unit", "kuf_unit_plain", "launch_kuf"]
+__all__ = ["kuf", "kuf_of", "kuf_unit", "kuf_unit_plain", "launch_kuf"]
 
 _FAMILY_CODE = {"rbf": 0, "mat32": 1}
 # drho/dt = C * e  (e from _profile: exp(-sqrt t) for Matern32, rho for RBF)
@@ -129,5 +129,11 @@ class _Kuf(torch.autograd.Function):
 def kuf(kernel, Z: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """Kuf = k(Z, X) [M, N]; differentiable in the kernel parameters and Z
     (X is data: zero cotangent)."""
-    return _Kuf.apply(Z, kernel.lengthscales.value, kernel.variance.value,
-                      X, kernel.family)
+    return kuf_of(Z, kernel.lengthscales.value, kernel.variance.value, X,
+                  kernel.family)
+
+
+def kuf_of(Z, ls, var, X, family: str) -> torch.Tensor:
+    """:func:`kuf` from the parameter values themselves (the sharded common
+    terms pass them in through ``DataMesh.enter``)."""
+    return _Kuf.apply(Z, ls, var, X, family)

@@ -10,7 +10,7 @@ no inducing points to build a Nystrom factor from.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -25,11 +25,13 @@ class IdentityPreconditioner:
 
 @dataclass
 class NystromPreconditioner:
-    A: torch.Tensor         # [M, N]
+    A: torch.Tensor         # [M, N]; the rank's columns under a mesh
     LB: torch.Tensor        # [M, M], lower
     sigma_sq: torch.Tensor  # []
     # optional LB^-1: every apply is then matmul-only
     Ci: Optional[torch.Tensor] = None
+    # parallel.mesh.DataMesh of a column-sharded A
+    mesh: Any = None
 
 
 def mat_vec(precond, r: torch.Tensor
@@ -40,20 +42,32 @@ def mat_vec(precond, r: torch.Tensor
     r^T P r is formed as (||rv||^2 + ||w||^2) / sigma^2, with w = B^-1 A r
     and rv = r - A^T w: A rv = w, so this equals (rv^T Qhat rv) / sigma^4
     and is nonnegative by construction.  The naive sum(rv * r) cancels
-    catastrophically when r lies mostly in Qhat's range."""
+    catastrophically when r lies mostly in Qhat's range.
+
+    With a mesh (A column-sharded, r replicated): A r summed over the
+    ranks, rv formed on the rank's rows and all-gathered; every rank then
+    holds the same z and rz."""
     if isinstance(precond, IdentityPreconditioner):
         return r, torch.sum(r * r, dim=-1)
     if not isinstance(precond, NystromPreconditioner):
         raise NotImplementedError(type(precond))
     A, LB, sigma_sq = precond.A, precond.LB, precond.sigma_sq
+    mesh = precond.mesh
     rt = r.to(A.dtype).T  # [N, B]
+    if mesh is not None:  # the rank's rows of r^T against its columns of A
+        rt = mesh.shard(rt, 0)
     Ar = A @ rt  # [M, B]
+    if mesh is not None:
+        Ar = mesh.reduce(Ar)
     if precond.Ci is not None:
         w = precond.Ci.T @ (precond.Ci @ Ar)
     else:
         u = torch.linalg.solve_triangular(LB, Ar, upper=False)
         w = torch.linalg.solve_triangular(LB.T, u, upper=True)
-    rv = rt - A.T @ w  # [N, B]
+    if mesh is None:
+        rv = rt - A.T @ w  # [N, B]
+    else:
+        rv = mesh.gather(rt - A.T @ mesh.enter(w), r.shape[1], 0)
     rz = torch.sum(rv * rv, dim=0) + torch.sum(w * w, dim=0)
     z = rv.T.to(r.dtype) / sigma_sq
     return z, rz.to(r.dtype) / sigma_sq

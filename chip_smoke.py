@@ -90,12 +90,35 @@ Phases, each of which fails the run (non-zero exit) on error:
     scipy steps) with ``-p 1`` in a fresh directory, five results.json and
     five event files; a second call skips all five; ``plotcli
     results_table`` then prints five rows with finite values and test rmse
-    at most 0.50, each beside the TPU run's (reported, not asserted).
+    at most 0.50, each beside the TPU run's (reported, not asserted);
+17. CGLB over ``torch.distributed`` (``cglb_tpu_torch/parallel``), kin40k at
+    full width, fp64, fp64 preconditioner for the parity checks: first NCCL
+    at world size 1 in this process, then two gloo ranks sharing the card
+    (processes of this script, ``--mesh-rank``).  At each rank the sharded
+    streaming loss (kernel 3 on the rank's Kuf columns, kernels 1-2 on its
+    columns of K(X, X)) against the one-process ``cglb.loss`` on the same
+    card: at CG capped at 4 steps from zeros, the loss to 1e-9; at a
+    converged v (no CG step), the loss to 1e-9 and every gradient to 1e-7;
+    kernels 1-3 launched.  Then, in the two ranks, ``--mesh 2 --dist-backend
+    gloo`` with phase 3's command through the CLI: the losses of its
+    objective evaluations (five steps and the logger's at step 0) beside
+    phase 3's (the one-process run's CG takes the fp32 tier, the sharded
+    one the accurate tier: within 1e-4), both ranks' final parameters
+    bitwise equal, one results.json and one event file (rank 0's), elbo
+    and cg_lower_bound at most the upper bound.  Rank 0's kernels 1-3 on
+    its column half (rows all of X, columns its block: kernel 1 and 2 on
+    their general path) against their plain versions with phase 2's
+    tolerances, and a step's seconds and those kernels' times beside their
+    bounds, printed as what they are: two ranks sharing one card, not a
+    multi-GPU speed.
 
 With ``--protocol-adam`` no phase runs: ``grids/protocol-adam.toml`` (the
 command of the TPU run runs/kin40k-2000-adam-r4, 2000 Adam steps) goes
 through the sweep runner from the repository root, and its best and final
 loss and test rmse are printed beside that run's.
+
+With ``--mesh-rank DIR`` no phase runs: the process is one rank of phase
+17's group (from ``CGLB_COORDINATOR``), writing what it saw into DIR.
 
 With ``--compare TREE ...`` no phase runs.  Each tree (a directory holding
 a ``cglb_tpu_torch`` package, such as an older commit unpacked with ``git
@@ -208,6 +231,14 @@ PROOF_RMSE = 0.50
 # --protocol-adam: the TPU run runs/kin40k-2000-adam-r4's command, whole
 ADAM_GRID = GRIDS / "protocol-adam.toml"
 ADAM_TPU = ROOT / "runs" / "kin40k-2000-adam-r4"
+# phase 17: phase 3's command over two gloo ranks sharing the card
+MESH_ARGS = ["--mesh", "2", "--dist-backend", "gloo"] + CLI_ARGS
+# sharded against one process: the loss (capped CG, and at a converged v),
+# every gradient at that v, relative to max |one process|; the five losses
+# of the CLI runs (CG tier against accurate tier in CG)
+MESH_TOL = {"loss": 1e-9, "grad": 1e-7, "run_loss": 1e-4}
+MESH_CG_CAP = 4
+MESH_RANK_TIMEOUT_S = 400.0
 
 
 class SmokeFailure(RuntimeError):
@@ -781,7 +812,7 @@ def require_all_launched(launches: dict, tag: str) -> None:
 
 def phase_main_path(results: dict) -> None:
     with tempfile.TemporaryDirectory() as logdir:
-        out = run_cli(CLI_ARGS, logdir)
+        out = run_cli(CLI_ARGS, logdir, steps=True)
     res, launches = out["res"], out["launches"]
     print(f"[main] CLI run ({' '.join(CLI_ARGS)}): {out['wall_s']:.2f} s "
           f"wall, launches {launches}", flush=True)
@@ -792,6 +823,7 @@ def phase_main_path(results: dict) -> None:
     require_all_launched(launches, "main")
     for name in _counters():
         results[name]["launches_adam_cli"] = launches[name]
+    results["_main_losses"] = out["step_losses"]
 
 
 def profiled_steps(step, steps: int) -> dict:
@@ -1999,6 +2031,249 @@ def protocol_adam(card: str) -> int:
 
 
 # --------------------------------------------------------------------------
+# phase 17: CGLB over torch.distributed
+# --------------------------------------------------------------------------
+
+
+def mesh_parity(mesh, tag: str) -> dict:
+    """The kin40k model's sharded streaming loss against the one-process
+    ``cglb.loss`` on this card, both on kernel 1's accurate tier with the
+    fp64 preconditioner: at CG capped at MESH_CG_CAP steps from zeros (the
+    loss), and at a converged v where CG takes no step (the loss and every
+    gradient).  Returns the errors and the sharded evaluations' launches."""
+    from cglb_tpu_torch.models import cglb as _cglb
+    from cglb_tpu_torch.ops import matvec as _mv
+    from cglb_tpu_torch.parallel import sharded as _sh
+
+    model = _kin40k_model()
+    params, (X, Y) = model.params, model.data
+    base = dataclasses.replace(model.run_cfg, precond_dtype="float64")
+    capped = dataclasses.replace(base, max_error=1e-30,
+                                 max_cg_iters=MESH_CG_CAP)
+    fixed = dataclasses.replace(base, max_error=1e30)
+
+    def one_process(cfg, v):
+        op = _mv.make_streaming_operator(params.kernel, X,
+                                         params.noise_variance.value)
+        return _cglb.loss(params, X, Y, v, cfg, matvec=op)
+
+    def sharded(cfg, v):
+        return _sh.sharded_cglb_loss(params, X, Y, v, cfg, mesh,
+                                     matvec="streaming")
+
+    def evaluate(fn, cfg, v):
+        params.zero_grad(set_to_none=True)
+        before = _read_counts()
+        loss, aux = fn(cfg, v)
+        loss.backward()
+        torch.cuda.synchronize()
+        return (float(loss.detach()), aux.cg_steps,
+                {name: prm.raw.grad.clone()
+                 for name, prm in params.named_params()},
+                _delta(_read_counts(), before))
+
+    with torch.no_grad():
+        _, solved = one_process(dataclasses.replace(base, max_error=1e-8,
+                                                    max_cg_iters=200),
+                                model.v0)
+    out = {"solve_cg_steps": solved.cg_steps,
+           "solve_residual_error": solved.cg_residual_error}
+    require(solved.cg_residual_error <= 1e-8,
+            f"{tag}: the solve for v did not converge: {out}")
+    v0 = torch.zeros_like(model.v0)
+    for label, cfg, v in (("capped", capped, v0), ("converged", fixed,
+                                                   solved.v)):
+        l1, s1, g1, _ = evaluate(one_process, cfg, v)
+        ls, ss, gs, launches = evaluate(sharded, cfg, v)
+        require(s1 == ss, f"{tag}: {label}: CG steps {ss} sharded against "
+                f"{s1} in one process")
+        out[f"{label}_loss_rel"] = abs(ls - l1) / abs(l1)
+        out[f"{label}_cg_steps"] = ss
+        out[f"{label}_launches"] = launches
+        require(out[f"{label}_loss_rel"] <= MESH_TOL["loss"],
+                f"{tag}: {label} loss {ls!r} against {l1!r}")
+        require_all_launched(launches, f"{tag}: {label}")
+        if label == "converged":
+            out["grad_rel"] = {name: rel_err(g, g1[name])[0]
+                               for name, g in gs.items()}
+            require(max(out["grad_rel"].values()) <= MESH_TOL["grad"],
+                    f"{tag}: gradients {out['grad_rel']}")
+    del model, params, X, Y
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank(outdir: Path) -> int:
+    """One rank of phase 17's gloo group: its parity check, then phase 3's
+    command with ``--mesh 2 --dist-backend gloo`` through the CLI
+    (in-process, joining the group), its step losses and seconds, launches
+    and final parameters; rank 0 then checks kernels 1-3 on its column
+    half (B 1) against their plain versions and times them while the other
+    rank waits.  Writes rank<r>.json and
+    rank<r>_params.npz into ``outdir``."""
+    from cglb_tpu_torch.experiments import cli
+    from cglb_tpu_torch.ops import kuf as _kuf
+    from cglb_tpu_torch.ops import matvec as _mv
+    from cglb_tpu_torch.ops.kernels import GAMMA
+    from cglb_tpu_torch.parallel import mesh as _pm
+
+    mesh = _pm.data_mesh(2, "cuda", "gloo")
+    tag = f"mesh rank {mesh.rank}"
+    rec = {"rank": mesh.rank, "mesh": mesh.describe(),
+           "parity": mesh_parity(mesh, tag)}
+    seen: dict = {}
+    _zero_counts()
+    t0 = time.perf_counter()
+    with _watched(seen, steps=True):
+        cli.main(["-l", str(outdir / "run")] + MESH_ARGS)
+    torch.cuda.synchronize()
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["launches"] = _read_counts()
+    marks = seen["marks"]
+    rec["step_s"] = [b["t"] - a["t"] for a, b in zip(marks, marks[1:])]
+    rec["step_losses"] = seen["step_losses"]
+    rec["step_cg"] = seen["step_cg"]
+    model = seen["model"]
+    np.savez(outdir / f"rank{mesh.rank}_params.npz",
+             **{name: p.raw.detach().cpu().numpy()
+                for name, p in model.params.named_params()})
+    mesh.barrier()
+    if mesh.rank == 0:  # the other rank waits in the next barrier
+        X = model.data[0]
+        ls = model.params.kernel.lengthscales.value.detach()
+        c0, c1 = mesh.cols(X.shape[0])
+        rows = _mv.Prepared(X, ls, "mat32")
+        cols = _mv.Prepared(X[c0:c1], ls, "mat32")
+        p = torch.randn(1, X.shape[0], dtype=torch.float64,
+                        device=X.device)
+        g = torch.randn(1, c1 - c0, dtype=torch.float64, device=X.device)
+        scale = math.sqrt(GAMMA["mat32"]) / ls
+        zg = model.params.inducing_Z.value.detach() * scale
+        xg = X[c0:c1] * scale
+        var = model.params.kernel.variance.value.detach()
+        rec["half_cols"] = c1 - c0
+        # kernels 1-3 on the general path at the rank's shapes, each
+        # against its plain version with phase 2's tolerances
+        kuf_k, e_k = _kuf.launch_kuf(zg, xg, var, "mat32")
+        kuf_p, e_p = _kuf.kuf_unit_plain(zg, xg, var, "mat32")
+        rec["half_err"] = {
+            "streaming_matvec": rel_err(
+                _mv.launch_matvec(rows, cols, p, True),
+                _mv.matvec_unit_plain(rows.xg, cols.xg, p, "mat32"))[0],
+            "ls_grad": rel_err(
+                _mv.launch_ls_grad(rows, cols, p, g),
+                _mv.ls_grad_unit_plain(rows.xg, cols.xg, p, g, "mat32"))[0],
+            "kuf": max(rel_err(kuf_k, kuf_p)[0], rel_err(e_k, e_p)[0])}
+        del kuf_k, e_k, kuf_p, e_p
+        rec["half_tol"] = {"streaming_matvec": TOL["matvec_accurate"],
+                           "ls_grad": TOL["backward"], "kuf": TOL["kuf"]}
+        rec["half_ms"] = {
+            "streaming_matvec": cuda_ms(
+                lambda: _mv.launch_matvec(rows, cols, p, True), 10),
+            "ls_grad": cuda_ms(
+                lambda: _mv.launch_ls_grad(rows, cols, p, g), 10),
+            "kuf": cuda_ms(lambda: _kuf.launch_kuf(zg, xg, var, "mat32"),
+                           10)}
+    mesh.barrier()
+    (outdir / f"rank{mesh.rank}.json").write_text(json.dumps(rec))
+    _pm.shutdown()
+    return 0
+
+
+def phase_mesh(results: dict, card: str) -> None:
+    from cglb_tpu_torch.parallel import mesh as _pm
+    from cglb_tpu_torch.utils.serialization import load_json
+
+    t0 = time.perf_counter()
+    env = {"CGLB_COORDINATOR": f"localhost:{_pm.free_port()}",
+           "CGLB_NUM_PROCESSES": "1", "CGLB_PROCESS_ID": "0"}
+    os.environ.update(env)
+    try:
+        mesh = _pm.data_mesh(1, "cuda")
+        print(f"[mesh] {mesh.describe()}", flush=True)
+        require(mesh.backend == "nccl", "mesh: NCCL expected on CUDA")
+        one = mesh_parity(mesh, "mesh NCCL world 1")
+    finally:
+        _pm.shutdown()
+        for key in env:
+            os.environ.pop(key)
+    print(f"[mesh] NCCL, world size 1, kin40k sharded streaming loss "
+          f"against one process ({card}): " + json.dumps(one), flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        outdir = Path(tmp)
+        _pm.run_ranks([sys.executable, str(ROOT / "chip_smoke.py"),
+                       "--mesh-rank", str(outdir)], 2, env=_port_env(),
+                      timeout_s=MESH_RANK_TIMEOUT_S)
+        ranks = [json.loads((outdir / f"rank{r}.json").read_text())
+                 for r in range(2)]
+        params = [np.load(outdir / f"rank{r}_params.npz") for r in range(2)]
+        run = outdir / "run"
+        written = sorted(f.name for f in run.iterdir())
+        res = load_json(run / "results.json")
+    for rec in ranks:
+        print(f"[mesh] {rec['mesh']}: parity " + json.dumps(rec["parity"])
+              + f"; CLI run launches {rec['launches']}", flush=True)
+        require_all_launched(rec["launches"], f"mesh rank {rec['rank']} run")
+    same = all(np.array_equal(params[0][k], params[1][k])
+               for k in params[0].files)
+    print(f"[mesh] --mesh 2 run: the ranks' final parameters bitwise "
+          f"equal: {same}; written: {written}", flush=True)
+    require(same, "mesh: the ranks' parameters differ")
+    require(sum(name == "results.json" for name in written) == 1
+            and sum(name.startswith("events.out.tfevents") for name in
+                    written) == 1 and "checkpoint.json" not in written,
+            f"mesh: unexpected files {written}")
+    finite_metrics(res, "mesh")
+    require(res["elbo"] <= res["titsias_upper_bound"], "mesh: elbo > upper")
+    require(res["cg_lower_bound"] <= res["titsias_upper_bound"],
+            "mesh: cg_lower_bound > upper")
+    losses, main = ranks[0]["step_losses"], results["_main_losses"]
+    require(ranks[1]["step_losses"] == losses,
+            "mesh: the ranks' step losses differ")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, main)]
+    print(f"[mesh] --mesh 2 run losses {losses} (CG steps "
+          f"{ranks[0]['step_cg']}); phase 3's one-process losses {main}; "
+          f"relative gaps {gaps} (bound {MESH_TOL['run_loss']:g})",
+          flush=True)
+    require(len(losses) == len(main) >= 5
+            and max(gaps) <= MESH_TOL["run_loss"],
+            "mesh: the run's losses moved from the one-process run's")
+    # the last four intervals between evaluations are steps 2-5 (the
+    # logger's evaluation after step 1 sits between the first two)
+    step_s = statistics.median(ranks[0]["step_s"][-4:])
+    cols = ranks[0]["half_cols"]
+    half_err, half_tol = ranks[0]["half_err"], ranks[0]["half_tol"]
+    print(f"[mesh] kernels on rank 0's column half (26800 x {cols}, B 1, "
+          f"general path) against their plain versions: rel err "
+          f"{json.dumps(half_err)} (bounds {json.dumps(half_tol)})",
+          flush=True)
+    for name, err in half_err.items():
+        require(err <= half_tol[name],
+                f"mesh: {name} on the column half against its plain version")
+    half = {"streaming_matvec": (ranks[0]["half_ms"]["streaming_matvec"],
+                                 matvec_bound(N, cols, D, 1, True)),
+            "ls_grad": (ranks[0]["half_ms"]["ls_grad"],
+                        ls_grad_bound(N, cols, D, 1)),
+            "kuf": (ranks[0]["half_ms"]["kuf"], kuf_bound(M, cols, D))}
+    print(f"[mesh] two ranks sharing one card, not a multi-GPU speed "
+          f"({card}): a step of the --mesh 2 run {step_s:.4f} s (median of "
+          f"steps 2-5, rank 0's clock); phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, (ms, bnd) in half.items():
+        show(f"{name} on rank 0's column half (26800 x {cols}, B 1, general "
+             "path), the other rank idle", ms, bnd)
+    for name in _counters():
+        results[name]["launches_mesh_run"] = sum(
+            rec["launches"][name] for rec in ranks)
+    results["_mesh"] = {
+        "losses": losses, "max_rel_gap": max(gaps), "step_s": step_s,
+        "half_cols": cols, "half_err": half_err, "nccl_world1": one,
+        "half": {name: {"ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
+                 for name, (ms, bnd) in half.items()}}
+
+
+# --------------------------------------------------------------------------
 # --compare: kernel and step times of source trees, in turns
 # --------------------------------------------------------------------------
 
@@ -2051,6 +2326,7 @@ def main() -> int:
     ap.add_argument("--compare", nargs="+", metavar="TREE",
                     help="time these source trees in turns instead")
     ap.add_argument("--times-of", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-rank", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--protocol-adam", action="store_true",
                     help="run the whole Adam protocol grid instead")
     args = ap.parse_args()
@@ -2062,6 +2338,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import cglb_tpu_torch  # noqa: F401  (fails without the repository)
 
+    if args.mesh_rank:
+        return mesh_rank(args.mesh_rank)
     card = nvidia_smi()
     print(f"[device] {card}", flush=True)
     if args.compare:
@@ -2097,12 +2375,14 @@ def main() -> int:
     phase_wide(kernels, card)
     phase_wide_cli(kernels, card)
     phase_sweep(card)
-    for name in _counters():  # over the four main paths
+    phase_mesh(kernels, card)
+    for name in _counters():  # over the five main paths
         kernels[name]["launches"] = (
             kernels[name]["launches_adam_cli"]
             + kernels[name]["launches_scipy4_run"]
             + kernels[name]["launches_exactgp_run"]
-            + kernels[name]["launches_houseelectric_run"])
+            + kernels[name]["launches_houseelectric_run"]
+            + kernels[name]["launches_mesh_run"])
 
     sources = {"streaming_matvec": ("cglb_tpu_torch/csrc/matvec_kernels.cuh",
                                     "cglb_tpu/ops/matvec_pallas.py:164"),
@@ -2121,7 +2401,7 @@ def main() -> int:
          **kernels[name]} for name, (src, rep) in sources.items()],
         "scipy4_run": kernels["_scipy4"], "exactgp_run": kernels["_exactgp"],
         "houseelectric_run": kernels["_houseelectric"],
-        "wide_run": kernels["_wide"]}
+        "wide_run": kernels["_wide"], "mesh_run": kernels["_mesh"]}
     print(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s "
           f"({card})", flush=True)
     print(json.dumps(line))

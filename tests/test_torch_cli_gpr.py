@@ -3,6 +3,8 @@ and the ``lbfgs`` / ``lbfgs_native`` / ``staged`` optimizers from the CLI on
 ``--device cpu``, beside the JAX package's CLI."""
 
 import json
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -10,15 +12,36 @@ from click.testing import CliRunner
 
 from cglb_tpu.backend import Jax
 from cglb_tpu.experiments.cli import main as jax_main
+from cglb_tpu.utils import native as jax_native
 from cglb_tpu_torch.experiments import cli as tcli
 from cglb_tpu_torch.utils import serialization as tser
 
 DATA = "synth_200x2"
+NATIVE = Path(__file__).resolve().parent.parent / "native"
 
 
 @pytest.fixture()
 def no_local_data(monkeypatch, tmp_path):
     monkeypatch.setenv("CGLB_DATA_DIR", str(tmp_path / "no_data_here"))
+
+
+@pytest.fixture(scope="module")
+def jax_native_library(tmp_path_factory):
+    """The JAX package's native library, built once for this module into a
+    directory of its own (the Makefile's BUILD) and loaded from there.
+    native/build is shared with every test process, which may be building
+    it at the same moment in place (not atomically); a loader that reads it
+    half-written stays failed for its process, and the JAX half of the
+    lbfgs_native cases would then fail."""
+    build = tmp_path_factory.mktemp("native_build")
+    subprocess.run(["make", "-C", str(NATIVE), f"BUILD={build}"], check=True,
+                   capture_output=True, timeout=300)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_LIB_PATH", build / "libcglb_native.so")
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_load_failed", False)
+        assert jax_native.native_available()
+        yield
 
 
 def _torch_cli(logdir, *tail):
@@ -52,6 +75,7 @@ def _results(logdir):
     ("lbfgs_native", ["sgpr", "-m", "sgpr", "-i", "cv", "-M", "10"]),
 ])
 def test_cli_exact_gp_and_lbfgs_write_the_jax_cli_keys(no_local_data,
+                                                        jax_native_library,
                                                         tmp_path, optimizer,
                                                         leaf):
     """4 iterations through both CLIs with the exact-GP leaves and the

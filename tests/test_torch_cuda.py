@@ -2,7 +2,8 @@
 small shapes, including the padded widths (D > 8, B not a power of two),
 rectangular matvecs and the symmetric path (one prepared point set),
 bitwise-equal repeat launches, kernel 1's gradient with respect to its
-vector, one evaluation of the scipy bridge against the CPU, short CLI runs
+vector, the sharded loss over NCCL at world size 1, one evaluation of the
+scipy bridge against the CPU, short CLI runs
 that must launch all three, the grouped launches above 8 rows, and the
 iterative exact GP with the L-BFGS optimizers.
 
@@ -173,6 +174,52 @@ def test_function_gradients_on_the_card_match_cpu(dev):
         grads.append([t.grad.cpu() for t in (pt, Zt, kern.variance.raw,
                                              kern.lengthscales.raw)])
     for cpu, gpu in zip(*grads):
+        assert _rel(gpu, cpu) < 1e-5
+
+
+def test_sharded_loss_on_the_card_matches_cpu(dev, monkeypatch):
+    """NCCL at world size 1: the sharded streaming CGLB loss and gradients
+    on the card (kernels 1-3 on the rank's columns, CG capped at 4) against
+    the one-process loss on the CPU (plain versions)."""
+    from cglb_tpu_torch.models import cglb as tc
+    from cglb_tpu_torch.models import sgpr as ts
+    from cglb_tpu_torch.parallel import mesh as tpm
+    from cglb_tpu_torch.parallel import sharded as tsh
+
+    rng = np.random.default_rng(4)
+    X = rng.normal(size=(500, 3))
+    Y = np.sin(X[:, :1]) + 0.1 * rng.normal(size=(500, 1))
+    cfg = tc.CGLBConfig(max_error=1e-30, max_cg_iters=4,
+                        precond_dtype="float64")
+
+    def run(device, mesh):
+        kern = tk.make_kernel("Matern32", 3, variance=1.3, lengthscales=0.9,
+                              dtype=torch.float64, device=device)
+        params = ts.SGPRParams(kern, X[:20], noise_variance=0.3,
+                               dtype=torch.float64, device=device)
+        Xt, Yt = (torch.tensor(a, device=device) for a in (X, Y))
+        v0 = tc.init_v0(500, device=device)
+        if mesh is None:
+            loss, _ = tc.loss(params, Xt, Yt, v0, cfg)
+        else:
+            loss, _ = tsh.sharded_cglb_loss(params, Xt, Yt, v0, cfg, mesh,
+                                            matvec="streaming")
+        loss.backward()
+        return loss.detach().cpu(), [q.raw.grad.cpu()
+                                     for _, q in params.named_params()]
+
+    monkeypatch.setenv("CGLB_COORDINATOR", f"localhost:{tpm.free_port()}")
+    monkeypatch.setenv("CGLB_NUM_PROCESSES", "1")
+    monkeypatch.setenv("CGLB_PROCESS_ID", "0")
+    try:
+        mesh = tpm.data_mesh(1, "cuda")
+        assert mesh.backend == "nccl"
+        got = run(dev, mesh)
+    finally:
+        tpm.shutdown()
+    want = run("cpu", None)
+    assert _rel(got[0], want[0]) < 1e-6
+    for gpu, cpu in zip(got[1], want[1]):
         assert _rel(gpu, cpu) < 1e-5
 
 

@@ -23,6 +23,8 @@ for name in ("jax", "click", "optax", "cglb_tpu", "pandas", "matplotlib"):
 import cglb_tpu_torch, cglb_tpu_torch.backend
 import cglb_tpu_torch.utils.flatten, cglb_tpu_torch.experiments.baselines
 import cglb_tpu_torch.utils.profiling, cglb_tpu_torch.utils.tfevents
+import cglb_tpu_torch.parallel.mesh, cglb_tpu_torch.parallel.sharded
+import cglb_tpu_torch.parallel.streaming
 from cglb_tpu_torch.experiments import (names, plotcli, plotting, sweep)
 from cglb_tpu_torch.experiments import cli
 argv = sys.argv[1:]
@@ -36,8 +38,9 @@ assert not any(m == "jax" or m.startswith(("jax.", "cglb_tpu."))
 
 
 def test_port_runs_with_jax_click_optax_blocked(tmp_path):
-    """Import the package, its backend, flatten bridge, baselines, CLI and
-    experiment tooling, and run a 2-step CPU scipy4 training with
+    """Import the package, its backend, flatten bridge, baselines, CLI,
+    experiment tooling and parallel modules, and run a 2-step CPU scipy4
+    training with
     checkpoints and then a staged ``gpr -m exactgp`` run, with jax, click,
     optax, cglb_tpu, pandas and matplotlib unimportable."""
     env = dict(os.environ, CGLB_DATA_DIR=str(tmp_path / "no_data_here"),
@@ -88,15 +91,19 @@ def test_wrappers_take_plain_version_only_on_cpu():
 
 
 @pytest.mark.parametrize("args,keys", [
-    (["--mesh", "4"], {"--mesh", "not ported", "NCCL", "ROADMAP.md"}),
-    (["--mesh", "2", "--dispatch-bound", "2"], {"--mesh", "not ported"}),
+    (["--device", "cuda", "--mesh", "4"], {"--mesh 4", "needs 4 cards",
+                                           "gloo"}),
+    (["--mesh", "-1", "--dispatch-bound", "2"], {"--mesh -1", "needs CUDA"}),
 ])
-def test_unported_options_fail_clearly(tmp_path, capsys, args, keys):
-    """--mesh above 1, the one option still unported, ends the CLI with a
-    message that names it and its queue, with --dispatch-bound (ported)
-    beside it or not."""
+def test_unported_options_fail_clearly(tmp_path, capsys, monkeypatch, args,
+                                       keys):
+    """Every option is ported; a --mesh that cannot run here ends the CLI
+    before any rank starts, with a message that names it: more ranks than
+    the one visible card under NCCL, or one rank a card on the CPU (with
+    --dispatch-bound beside it)."""
     from cglb_tpu_torch.experiments import cli
 
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(SystemExit):
         cli.main(["-l", str(tmp_path), "--device", "cpu"] + args + [
             "train", "-n", "1", "-d", "synth_40x1", "cglb", "-m", "cglb",
@@ -152,10 +159,25 @@ def test_gpr_metric_runs(tmp_path, monkeypatch):
     assert got["id"] == str(tmp_path / "log")
 
 
-def test_mesh_option_is_refused(tmp_path):
+def test_mesh_option_is_refused(tmp_path, monkeypatch, capsys):
+    """--mesh on CUDA where no card is visible: refused before any rank
+    starts."""
     from cglb_tpu_torch.experiments import cli
 
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     with pytest.raises(SystemExit):
-        cli.main(["-l", str(tmp_path), "--device", "cpu", "--mesh", "4",
+        cli.main(["-l", str(tmp_path), "--device", "cuda", "--mesh", "4",
                   "train", "-d", "synth_40x1", "cglb", "-m", "cglb", "-k",
                   "rbf", "-i", "cv"])
+    assert "no CUDA device is visible" in capsys.readouterr().err
+
+
+def test_parallel_modules_import_torch_only():
+    """cglb_tpu_torch/parallel imports torch and the port, never jax or
+    cglb_tpu."""
+    pattern = re.compile(r"^\s*(import|from) (jax|cglb_tpu)\b", re.M)
+    files = sorted((ROOT / "cglb_tpu_torch" / "parallel").glob("*.py"))
+    assert {f.name for f in files} >= {"mesh.py", "sharded.py",
+                                       "streaming.py"}
+    for f in files:
+        assert not pattern.search(f.read_text()), f
