@@ -14,7 +14,7 @@
 //
 // with zg = Z sqrt(gamma) / lengthscale, xg = X sqrt(gamma) / lengthscale
 // prepared by the wrapper and zero-padded to DP in {8, 32} columns, or, for
-// D > 32, to a multiple of kChunk (kuf_wide_kernel).
+// D > 32, to a multiple of 8 (kuf_wide_kernel).
 //
 // What bounds it on an H100: writing the [M, N] output (8 bytes an entry,
 // 16 with e; 439 MB at M = 2048, N = 26800), next to one fp64 sqrt and exp
@@ -23,9 +23,10 @@
 // each thread keeps its X row in registers and writes 4 rows, so each warp
 // writes 32 consecutive entries of a row (coalesced).  Above DP 32 the
 // wide kernel keeps the same blocks and loops over the coordinates in
-// chunks of kChunk: the chunk of the 32 Z rows in shared memory, of the
-// thread's X row in registers, t of its 4 entries summed across chunks in
-// the same order as one pass would, then the same profile.
+// chunks of kChunk, then of 8 for the rest (DP is a multiple of 8): the
+// chunk of the 32 Z rows in shared memory, of the thread's X row in
+// registers, t of its 4 entries summed across chunks in the same order as
+// one pass would, then the same profile.
 
 #include <climits>
 
@@ -102,6 +103,34 @@ kuf_kernel(const T* __restrict__ zg, int m, const T* __restrict__ xg, int n,
   }
 }
 
+// t[rr] += the coordinates [d0, d0 + W) of the kernel's wide chunk loop
+template <int W, typename T>
+__device__ __forceinline__ void kuf_chunk(T* zs, const T* __restrict__ zg,
+                                          int m, int m0,
+                                          const T* __restrict__ xg, int n,
+                                          int col, int dp, int d0, int tid,
+                                          T (&t)[kRowsPerThread]) {
+  __syncthreads();  // every thread is done with the previous chunk
+  for (int k = tid; k < kRows * W; k += kCols * kRowThreads) {
+    const int r = k / W;
+    zs[k] = m0 + r < m ? zg[(size_t)(m0 + r) * dp + d0 + (k - r * W)] : T(0);
+  }
+  T xj[W];
+#pragma unroll
+  for (int d = 0; d < W; ++d)
+    xj[d] = col < n ? xg[(size_t)col * dp + d0 + d] : T(0);
+  __syncthreads();
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerThread; ++rr) {
+    const int r = threadIdx.y + rr * kRowThreads;
+#pragma unroll
+    for (int d = 0; d < W; ++d) {
+      const T df = zs[r * W + d] - xj[d];
+      t[rr] = fma_t(df, df, t[rr]);
+    }
+  }
+}
+
 template <int FAM, typename T>
 __global__ void __launch_bounds__(kCols * kRowThreads)
 kuf_wide_kernel(const T* __restrict__ zg, int m, const T* __restrict__ xg,
@@ -115,28 +144,11 @@ kuf_wide_kernel(const T* __restrict__ zg, int m, const T* __restrict__ xg,
   T t[kRowsPerThread];
 #pragma unroll
   for (int rr = 0; rr < kRowsPerThread; ++rr) t[rr] = T(0);
-  for (int d0 = 0; d0 < dp; d0 += kChunk) {
-    __syncthreads();  // every thread is done with the previous chunk
-    for (int k = tid; k < kRows * kChunk; k += kCols * kRowThreads) {
-      const int r = k / kChunk;
-      zs[k] = m0 + r < m ? zg[(size_t)(m0 + r) * dp + d0 + (k - r * kChunk)]
-                         : T(0);
-    }
-    T xj[kChunk];
-#pragma unroll
-    for (int d = 0; d < kChunk; ++d)
-      xj[d] = col < n ? xg[(size_t)col * dp + d0 + d] : T(0);
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerThread; ++rr) {
-      const int r = threadIdx.y + rr * kRowThreads;
-#pragma unroll
-      for (int d = 0; d < kChunk; ++d) {
-        const T df = zs[r * kChunk + d] - xj[d];
-        t[rr] = fma_t(df, df, t[rr]);
-      }
-    }
-  }
+  int d0 = 0;
+  for (; d0 + kChunk <= dp; d0 += kChunk)
+    kuf_chunk<kChunk>(zs, zg, m, m0, xg, n, col, dp, d0, tid, t);
+  for (; d0 < dp; d0 += 8)  // the rest, a multiple of 8
+    kuf_chunk<8>(zs, zg, m, m0, xg, n, col, dp, d0, tid, t);
   if (col >= n) return;
   const T var = *var_ptr;
 #pragma unroll
@@ -168,7 +180,7 @@ int dispatch(const T* zg, long long m, const T* xg, long long n, int dp,
   if (family == MAT32 && dp == 32) return launch<T, MAT32, 32>(zg, mi, xg, ni, var, kuf, e, s);
   if (family == RBF && dp == 8) return launch<T, RBF, 8>(zg, mi, xg, ni, var, kuf, e, s);
   if (family == RBF && dp == 32) return launch<T, RBF, 32>(zg, mi, xg, ni, var, kuf, e, s);
-  if (dp > 32 && dp % kChunk == 0 && (family == RBF || family == MAT32)) {
+  if (dp > 32 && dp % 8 == 0 && (family == RBF || family == MAT32)) {
     const dim3 grid((ni + kCols - 1) / kCols, (mi + kRows - 1) / kRows);
     const dim3 block(kCols, kRowThreads);
     if (family == MAT32)

@@ -1,8 +1,8 @@
 // C entry points of the streaming kernel matvec (kernel 1) and its
 // lengthscale gradient (kernel 2), bound with ctypes by ops/_build.py.  The
 // kernels and what they replace are described in matvec_kernels.cuh; a
-// coordinate width dp above 32 goes to the wide kernels of matvec_wide.cu,
-// which take the general path only (symmetric = 0, row_out = nullptr).
+// coordinate width dp above 32 goes to the wide kernels of matvec_wide.cuh,
+// which take both paths with the same arguments.
 
 #include <climits>
 
@@ -93,17 +93,22 @@ int cglb_matvec(const float* xr, long long ni, const float* xc, long long nj,
 
 // partial [segments * ceil(nj / block columns), dp] fp64, block
 // (segment s, column block c) in row s * (column blocks) + c; g is [b, ldg]
-// (symmetric: xr == xc, and ldg a multiple of 4 with g zero past nj)
+// (symmetric: xr == xc, and ldg a multiple of 4 with g zero past nj).  xs:
+// above dp 32, xc with each column block's first point subtracted from its
+// columns (the wide kernel's moment pass reads it); unread below.
 int cglb_ls_grad(const float* xr, long long ni, const float* xc, long long nj,
-                 const float* p, long long ldp, const float* g, long long ldg,
-                 int b, int dp, int family, int symmetric, int seg_rows,
-                 int segments, double* partial, void* stream) {
-  if (cglb::bad_sizes(ni, nj, ldp, ldg)) return cglb::kBadArgument;
+                 const float* xs, const float* p, long long ldp,
+                 const float* g, long long ldg, int b, int dp, int family,
+                 int symmetric, int seg_rows, int segments, double* partial,
+                 void* stream) {
+  if (cglb::bad_sizes(ni, nj, ldp, ldg) || (dp > 32 && xs == nullptr))
+    return cglb::kBadArgument;
   cglb::Args a{};
   a.xr = xr;
   a.ni = static_cast<int>(ni);
   a.xc = xc;
   a.nj = static_cast<int>(nj);
+  a.xs = xs;
   a.p = p;
   a.ldp = static_cast<int>(ldp);
   a.g = g;

@@ -1,7 +1,8 @@
 // Interface of kernels 1 and 2 between their C entry points (matvec.cu) and
 // their instantiations (matvec_kernels.cuh, compiled once per family and
 // path in matvec_<family>.cu and matvec_<family>_sym.cu, and the wide
-// kernels of matvec_wide.cu, so that nvcc builds the five in parallel).
+// kernels of matvec_wide.cuh, once per family in matvec_wide_<family>.cu, so
+// that nvcc builds the six in parallel).
 #pragma once
 
 #include "common.cuh"
@@ -15,6 +16,7 @@ struct Args {
   int ni;
   const float* xc;
   int nj;
+  const float* xs;  // kernel 2, wide: xc less each column block's first point
   const float* p;
   int ldp;
   const float* g;
@@ -38,8 +40,9 @@ struct Args {
 template <int FAM, bool SYM>
 int run_family(const Args& a, int dp, int b, Op op);
 
-// the wide kernels 1 and 2 (matvec_wide.cu), general path only, for a
-// coordinate width dp > 32 that is a multiple of 32, batch b as above
+// the wide kernels 1 and 2 (matvec_wide.cuh) on the symmetric or general
+// path, for a coordinate width dp > 32 that is a multiple of 8, batch b as
+// above
 template <int FAM>
 int run_wide(const Args& a, int dp, int b, Op op);
 

@@ -79,7 +79,7 @@
 //   the small distances that matter most.
 //
 // Coordinates are zero-padded to DP in {8, 32} columns (wider: the chunked
-// kernels of matvec_wide.cu) and p/g to B in
+// kernels of matvec_wide.cuh) and p/g to B in
 // {1, 2, 4, 8} rows by the wrapper; staged row vectors are zero-padded to a
 // leading dimension that is a multiple of 4, so tiles load as 16-byte
 // copies.  Rows past ni are zero-filled in shared memory and carry p = 0,

@@ -3,8 +3,8 @@
 Counterpart of ``cglb_tpu/ops/matvec_pallas.py``.  Two CUDA kernels
 (``csrc/matvec_kernels.cuh``, entry points in ``csrc/matvec.cu``) do the
 work on the card; above 32 input dimensions the wide kernels of
-``csrc/matvec_wide.cu`` do, looping over the coordinates in chunks
-(:func:`coord_plan`):
+``csrc/matvec_wide.cuh`` do, streaming the coordinates through shared
+memory in chunks (:func:`coord_plan`):
 
 - kernel 1, :func:`launch_matvec`: out[b, j] = sum_i p[b, i] rho(t_ij), with
   t = gamma * d2 from coordinates prepared once per objective evaluation
@@ -73,22 +73,24 @@ _MAX_SEGMENTS = 32
 # unchanged; at houseelectric's 1,373,017 rows a slab takes 97 blocks at
 # B = 1 where all 21,454 would take 117.8 GB.
 ROW_PARTIAL_BYTES = 1 << 29
-# coordinates a pass of the wide kernels (csrc/matvec_wide.cu, kuf.cu)
-WIDE_CHUNK = 32
+# above 32 input dimensions the coordinates are padded to a multiple of
+# this (the wide kernels' chunks, csrc/matvec_wide.cuh and kuf.cu)
+WIDE_CHUNK = 8
 
 
 class CoordPlan(NamedTuple):
     """How the CUDA kernels 1-3 take d input dimensions: coordinates
     zero-padded to ``width`` columns; ``wide`` above 32, where the kernels
-    loop over chunks of WIDE_CHUNK coordinates and kernels 1-2 take the
-    general path only (every ordered pair, also for K(X, X))."""
+    stream the coordinates in chunks (kernels 1-2 on both paths, as below
+    32)."""
     width: int
     wide: bool
 
 
 def coord_plan(d: int) -> CoordPlan:
     """The instantiated widths 8 and 32 up to d = 32; above it the next
-    multiple of WIDE_CHUNK, with no upper limit."""
+    multiple of WIDE_CHUNK (D 40 at 40, D 100 at 104), with no upper limit
+    but kernel 2's shared memory (12 bytes a coordinate: about 13000)."""
     if d < 1:
         raise ValueError(f"input dimension {d} < 1")
     if d <= 8:
@@ -124,6 +126,7 @@ class Prepared:
         self.xg = (X * (math.sqrt(GAMMA[family]) / ls)).detach()
         self.plan = coord_plan(self.xg.shape[1])
         self._packed = None
+        self._shifted = {}
 
     @property
     def n(self) -> int:
@@ -137,6 +140,18 @@ class Prepared:
             out[:, :d] = self.xg
             self._packed = out
         return self._packed
+
+    def block_shifted(self, block: int) -> torch.Tensor:
+        """:meth:`packed` with each run of ``block`` points shifted by its
+        first point (in fp32, as the kernel shifts the rows it pairs with
+        them): the columns of the wide kernel 2's moment expansion, whose
+        terms then stay the size of the distances however far the points
+        lie from the origin."""
+        if block not in self._shifted:
+            x = self.packed()
+            first = torch.arange(self.n, device=x.device) // block * block
+            self._shifted[block] = x - x[first]
+        return self._shifted[block]
 
 
 # --------------------------------------------------------------------------
@@ -341,9 +356,8 @@ def launch_matvec(rows: Prepared, cols: Prepared, p: torch.Tensor,
     """Kernel 1 on the card: [B, Nc] in fp64 (accurate) or fp32 (CG), from
     per-segment partials summed by :func:`reduce_segments`.  When rows and
     cols are the same prepared set the symmetric path takes each pair once
-    and adds the per-column-block row sums (up to 32 input dimensions; the
-    wide kernels take the general path).  B > MAX_BATCH: one launch per
-    group of rows, concatenated."""
+    and adds the per-column-block row sums, at any width.  B > MAX_BATCH:
+    one launch per group of rows, concatenated."""
     if p.ndim != 2 or p.shape[1] != rows.n:
         raise ValueError(f"p of shape {tuple(p.shape)} for {rows.n} rows")
     groups = _groups(p.shape[0])
@@ -363,7 +377,7 @@ def _launch_matvec_group(rows: Prepared, cols: Prepared, p: torch.Tensor,
     _same_device(xr, xc, pf)
     lib = _build.load()
     dp = xr.shape[1]
-    symmetric = rows is cols and not rows.plan.wide
+    symmetric = rows is cols
     acc = torch.float64 if accurate else torch.float32
     geo = _geometry(lib, rows.family, dp, bp, accurate, False, symmetric,
                     p.device)
@@ -416,8 +430,7 @@ def launch_ls_grad(rows: Prepared, cols: Prepared, p: torch.Tensor,
                    g: torch.Tensor) -> torch.Tensor:
     """Kernel 2 on the card: [D] fp64, summed over its per-block partials
     by a deterministic torch.sum (no atomics); symmetric (each pair once,
-    m_ij + m_ji) when rows and cols are the same prepared set of at most 32
-    input dimensions.  B >
+    m_ij + m_ji) when rows and cols are the same prepared set.  B >
     MAX_BATCH: one launch per group of rows, added in fp64 in group order."""
     if p.ndim != 2 or g.shape != (p.shape[0], cols.n) \
             or p.shape[1] != rows.n:
@@ -433,7 +446,7 @@ def _launch_ls_grad_group(rows: Prepared, cols: Prepared, p: torch.Tensor,
                           g: torch.Tensor) -> torch.Tensor:
     xr, xc = rows.packed(), cols.packed()
     B = p.shape[0]
-    symmetric = rows is cols and not rows.plan.wide
+    symmetric = rows is cols
     bp = _bpad(B)
     ldp = -(-rows.n // 4) * 4
     ldg = ldp if symmetric else cols.n  # symmetric: g is staged like p
@@ -446,8 +459,12 @@ def _launch_ls_grad_group(rows: Prepared, cols: Prepared, p: torch.Tensor,
     segments, seg_rows = plan_segments(rows.n, cols.n, geo, symmetric)
     partial = torch.empty(segments * -(-cols.n // geo.block_cols), dp,
                           dtype=torch.float64, device=p.device)
+    xs = cols.block_shifted(geo.block_cols) if cols.plan.wide else None
+    if xs is not None:
+        _same_device(xr, xs)
     rc = lib.cglb_ls_grad(
-        xr.data_ptr(), rows.n, xc.data_ptr(), cols.n, pf.data_ptr(), ldp,
+        xr.data_ptr(), rows.n, xc.data_ptr(), cols.n,
+        None if xs is None else xs.data_ptr(), pf.data_ptr(), ldp,
         gf.data_ptr(), ldg, bp, dp, _FAMILY_CODE[rows.family],
         int(symmetric), seg_rows, segments, partial.data_ptr(),
         torch.cuda.current_stream(p.device).cuda_stream)

@@ -8,7 +8,8 @@ Phases, each of which fails the run (non-zero exit) on error:
 
 1. device and build: the card's name and power limit (nvidia-smi), then the
    CUDA kernels built from cglb_tpu_torch/csrc with nvcc, and the
-   ``-Xptxas -v`` registers and spills of kernels 1 and 2;
+   ``-Xptxas -v`` registers and spills of kernels 1 and 2 (narrow and
+   wide);
 2. each kernel against its plain PyTorch version at the main path's shapes
    (N = 26800, D = 8, M = 2048, B = 1, both kernel families; kernel 1 also
    at the prediction shapes 26800 x 13200 and 13200 x 26800): errors
@@ -20,7 +21,9 @@ Phases, each of which fails the run (non-zero exit) on error:
    ``train -n 5 -d Wilson_kin40k -o adam_0.01 cglb -m cglb -k Matern32 -i cv
    -M 2048`` in fp64, its results.json checked and the kernels' launch
    counts over that run read; then warm Adam steps of the same model timed
-   on the host clock and, under torch.profiler, their device time and
+   on the host clock and, under torch.profiler, their device time (the
+   kernels, copies and fills on the card, not the GPU-side spans of the
+   steps' own annotations; at most the profiled window's wall time) and
    kernel launches per step;
 4. the anchor: the parameters of the TPU run runs/kin40k-2000-scipy4-r4
    loaded into the port on the same synthetic data; elbo and the upper bound
@@ -78,10 +81,14 @@ Phases, each of which fails the run (non-zero exit) on error:
     than at the start, elbo and cg_lower_bound at most the upper bound,
     finite test rmse and nlpd;
 15. input dimensions above 32, where the wide kernels run: kernels 1-3 at D
-    40 and 100, both families, N 26800 (kernel 1 in both tiers on K(X, X)
-    and on two prepared sets, at B = 1 and 10; kernel 2 at B = 1; kernel 3
-    at M 1024) against their plain versions, repeats bitwise equal, times
-    beside bounds counted at D; then ``train -n 3 --holdout-interval -1 -d
+    40 and 100 (coordinates padded to 40 and 104), both families, N 26800
+    (kernels 1 and 2 on K(X, X), the symmetric path, and on two prepared
+    sets of the same points, the general path, at B = 1 and 10, kernel 1
+    in both tiers; kernel 2 also on the data translated by +100 in every
+    coordinate against the untranslated plain gradient, the guard of its
+    moment expansion; kernel 3 at M 1024) against their plain versions,
+    repeats bitwise equal, times beside bounds counted at D (K(X, X)'s
+    pairs once); then ``train -n 3 --holdout-interval -1 -d
     synth_30000x40 -o adam_0.01 cglb -m cglb -k Matern32 -i cv -M 1024``
     through the CLI: kernels 1-3 launched, the loss lower after 3 steps,
     elbo and cg_lower_bound at most the upper bound, finite test metrics;
@@ -123,9 +130,11 @@ With ``--mesh-rank DIR`` no phase runs: the process is one rank of phase
 With ``--compare TREE ...`` no phase runs.  Each tree (a directory holding
 a ``cglb_tpu_torch`` package, such as an older commit unpacked with ``git
 archive``) is timed in a process of its own, which builds that tree's
-kernels: the kernel rows of phase 2 (Matern32, without the plain versions)
-and the warm Adam steps of phase 3.  The median of each row over the runs
-of each tree is printed last, beside the card's name and power limit.
+kernels: the kernel rows of phase 2 (Matern32, without the plain versions),
+phase 15's rows of the wide kernels at D 40 and 100 (Matern32, with their
+bounds) and the warm Adam steps of phase 3.  The median of each row over
+the runs of each tree is printed last, beside the card's name and power
+limit.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -334,22 +343,26 @@ def show(name: str, ms: float, bnd, extra: str = "") -> None:
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
-# template arguments of the mangled names: <FAM, DP, B[, Acc], SYM>
+# template arguments of the mangled names: <FAM, DP, B[, Acc], SYM>, and of
+# the wide kernels <FAM, B[, Acc], SYM> (DP at run time: "wide")
 _STREAMING = re.compile(r"(matvec_kernel|ls_grad_kernel)"
                         r"ILi(\d)ELi(\d+)ELi(\d)E([df]?)Lb(\d)E")
+_WIDE = re.compile(r"(matvec_wide_kernel|ls_grad_wide_kernel)"
+                   r"ILi(\d)E()Li(\d)E([df]?)Lb(\d)E")
 _FAMILY_NAME = {"0": "rbf", "1": "mat32"}
 
 
 def register_report(log: str) -> dict:
     """{(kernel, tier): ["family/DP/B: R regs, spill S/L B", ...]} of
-    kernels 1 and 2 from an ``-Xptxas -v`` log."""
+    kernels 1 and 2, narrow and wide, from an ``-Xptxas -v`` log."""
     out: dict = {}
     name = None
     spill = ""
     for line in log.splitlines():
         entry = _ENTRY.search(line)
         if entry:
-            name = _STREAMING.search(entry.group(1))
+            name = (_STREAMING.search(entry.group(1))
+                    or _WIDE.search(entry.group(1)))
             continue
         if name is None:
             continue
@@ -360,6 +373,7 @@ def register_report(log: str) -> dict:
         found = re.search(r"Used (\d+) registers", line)
         if found:
             kernel, fam, dp, b, acc, sym = name.groups()
+            dp = dp or "wide"
             tier = {"d": "accurate", "f": "cg", "": "ls_grad"}[acc]
             tier += " symmetric" if sym == "1" else ""
             out.setdefault((kernel, tier), []).append(
@@ -373,6 +387,64 @@ def print_registers(log: str) -> None:
     for (kernel, tier), rows in sorted(register_report(log).items()):
         print(f"[build] {kernel} {tier} (family/DP/B): " + "; ".join(rows),
               flush=True)
+
+
+def _sass_loops(listing: str) -> list:
+    """[(instructions, {opcode: count})] of each loop (a branch back to an
+    earlier address) in one function's ``cuobjdump -sass`` listing."""
+    ins = [(int(m.group(1), 16), m.group(2)) for m in re.finditer(
+        r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", listing)]
+    at = {a: i for i, (a, _) in enumerate(ins)}
+    loops = []
+    for i, (a, op) in enumerate(ins):
+        target = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
+        if target and int(target.group(1), 16) <= a \
+                and int(target.group(1), 16) in at:
+            body = [o for _, o in ins[at[int(target.group(1), 16)]:i + 1]]
+            ops: dict = {}
+            for o in body:
+                word = o.split()[1 if o.startswith("@") else 0]
+                ops[word.split(".")[0]] = ops.get(word.split(".")[0], 0) + 1
+            loops.append((len(body), ops))
+    return loops
+
+
+def sass_census() -> None:
+    """Instructions a pair and coordinate in the inner loops of the wide
+    kernels (Matern32, B 1, symmetric), from ``cuobjdump -sass`` of the
+    built library: the t loop (as many FADD as FFMA, one of each per pair
+    and coordinate) and kernel 2's moment loop (FFMA only, one per pair
+    and coordinate); the listings go to chiprun_out/wide_sass.txt."""
+    from cglb_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        print("[build] cuobjdump not found: no SASS census", flush=True)
+        return
+    sass = subprocess.run([tool, "-sass", str(_build.LIB_PATH)], check=True,
+                          capture_output=True, text=True,
+                          timeout=300).stdout
+    kept = []
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        found = _WIDE.search(name)
+        if not found or found.group(2, 4, 6) != ("1", "1", "1"):
+            continue
+        kept.append("Function : " + part)
+        for length, ops in _sass_loops(part):
+            ffma, fadd = ops.get("FFMA", 0), ops.get("FADD", 0)
+            if ffma < 32 or fadd not in (0, ffma):  # not an inner loop
+                continue
+            kind = "t loop" if fadd else "moment loop"
+            per = length / ffma
+            tier = {"d": " accurate", "f": " CG tier", "": ""}[
+                found.group(5)]
+            print(f"[build] SASS {found.group(1)}{tier} symmetric B 1 "
+                  f"{kind}: {length} instructions for {ffma} FFMA, {fadd} "
+                  f"FADD, {ops.get('LDS', 0)} LDS: {per:.3f} instructions "
+                  f"a pair and coordinate", flush=True)
+    OUT.mkdir(exist_ok=True)
+    (OUT / "wide_sass.txt").write_text("".join(kept))
 
 
 def phase_build() -> None:
@@ -391,6 +463,7 @@ def phase_build() -> None:
           f"instantiations, register report in chiprun_out/"
           "chip_smoke_build.log", flush=True)
     print_registers(log)
+    sass_census()
 
 
 # --------------------------------------------------------------------------
@@ -826,28 +899,48 @@ def phase_main_path(results: dict) -> None:
     results["_main_losses"] = out["step_losses"]
 
 
+def _device_work(ev, regions) -> bool:
+    """A kernel, memcpy or memset on the card: an event of the CUDA device
+    that is not the GPU-side span of a user annotation (``annotate``'s
+    regions, whose span covers all the work inside them)."""
+    if ev.device_type != torch.autograd.DeviceType.CUDA:
+        return False
+    if getattr(ev, "is_user_annotation", False) or ev.key in regions:
+        return False
+    kind = str(getattr(ev, "activity_type", None) or "").lower()
+    return not kind or any(k in kind for k in ("kernel", "memcpy", "memset"))
+
+
 def profiled_steps(step, steps: int) -> dict:
     """``steps`` calls of ``step``, each a named region, under the port's
     ``utils.profiling.trace`` (torch.profiler with the CUDA activity, a
     Chrome trace written and its size read): per step, the device time of
-    all kernels and of kernels 1-3 (self device time of the events whose
-    name holds the kernel's), and the launches of kernels 1-3."""
+    all kernels, copies and fills on the card (the regions' own GPU-side
+    spans left out: they would count the step twice) and of kernels 1-3
+    (self device time of the events whose name holds the kernel's), the
+    host-clock seconds of the profiled window, and the launches of kernels
+    1-3."""
     from cglb_tpu_torch.utils.profiling import annotate, trace
 
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
+    regions = {f"step {i}" for i in range(steps)}
     with tempfile.TemporaryDirectory() as logdir:
         with trace(logdir, device="cuda") as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             for i in range(steps):
                 with annotate(f"step {i}"):
                     step()
+            torch.cuda.synchronize()
+            window_s = time.perf_counter() - t0
         trace_bytes = prof.trace_path.stat().st_size
     tags = {"streaming_matvec": "matvec_kernel", "ls_grad": "ls_grad_kernel",
             "kuf": "kuf_kernel"}
     device = dict.fromkeys(["all"] + list(tags), 0.0)
     for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        if not _device_work(ev, regions):
             continue
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
@@ -857,6 +950,11 @@ def profiled_steps(step, steps: int) -> dict:
                 device[name] += us
     out = {f"device ms per step, {name}": us / 1e3 / steps
            for name, us in device.items()}
+    out["profiled step s"] = window_s / steps
+    # one stream: its kernels and copies run one after another, so their
+    # sum cannot exceed the window's wall time
+    require(out["device ms per step, all"] <= 1e3 * out["profiled step s"],
+            "profiler: device time above the profiled window's wall time")
     for name, fn in counters.items():
         out[f"launches per step, {name}"] = fn.launches / steps
     out["trace bytes"] = trace_bytes
@@ -1730,8 +1828,8 @@ def phase_houseelectric(results: dict, card: str) -> None:
 
 def wide_inputs(d: int):
     """X [N, d], Z [WIDE_M, d], p [10, N], g [1, N], lengthscales sqrt(d)
-    x U(0.5, 2) (so that K is not near-diagonal at this d) and the variance,
-    on the card, from numpy seed d."""
+    x U(0.5, 2) (so that K is not near-diagonal at this d), the variance and
+    g [10, N] for kernel 2 at B 10, on the card, from numpy seed d."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(d)
     X = torch.as_tensor(rng.normal(size=(N, d)), device=dev)
@@ -1741,18 +1839,64 @@ def wide_inputs(d: int):
     ls = torch.as_tensor(math.sqrt(d) * rng.uniform(0.5, 2.0, size=d),
                          device=dev)
     var = torch.as_tensor(1.7, dtype=torch.float64, device=dev)
-    return X, Z, P, g, ls, var
+    G = torch.as_tensor(rng.normal(size=(max(WIDE_B), N)), device=dev)
+    return X, Z, P, g, ls, var, G
+
+
+def _wide_g(b: int, g, G):
+    return g if b == 1 else G[:b]
+
+
+def wide_rows(d: int, family: str, inputs) -> dict:
+    """{row: (launch, bound)} of the wide kernels at input dimension d:
+    kernel 1 on K(X, X) (one prepared set: the symmetric path) in both
+    tiers and on two prepared sets of the same points (the general path),
+    kernel 2 on both, at B 1 and 10, and kernel 3.  Bounds at the data's d,
+    K(X, X)'s pairs counted once, two sets' as the general function.  Only
+    entry points that every tree since PR 6 has (``--compare``)."""
+    from cglb_tpu_torch.ops import kuf as _kuf
+    from cglb_tpu_torch.ops import matvec as _mv
+
+    X, Z, P, g, ls, var, G = inputs
+    rows = _mv.Prepared(X, ls, family)
+    rows2 = _mv.Prepared(X, ls, family)
+    c = math.sqrt(_mv.GAMMA[family])
+    zg, xg = Z * (c / ls), X * (c / ls)
+
+    def mv(r, c_, b, accurate):
+        return lambda: _mv.launch_matvec(r, c_, P[:b], accurate)
+
+    def lsg(r, c_, b):
+        return lambda: _mv.launch_ls_grad(r, c_, P[:b], _wide_g(b, g, G))
+
+    out = {}
+    for b in WIDE_B:
+        out[f"kernel 1 accurate K(X, X) B {b}"] = (
+            mv(rows, rows, b, True), matvec_bound(N, N, d, b, True, True))
+        out[f"kernel 1 CG tier K(X, X) B {b}"] = (
+            mv(rows, rows, b, False), matvec_bound(N, N, d, b, False, True))
+        out[f"kernel 1 accurate, two prepared sets, B {b}"] = (
+            mv(rows, rows2, b, True), matvec_bound(N, N, d, b, True))
+        out[f"kernel 2 K(X, X) B {b}"] = (
+            lsg(rows, rows, b), ls_grad_bound(N, N, d, b, True))
+        out[f"kernel 2 two prepared sets, B {b}"] = (
+            lsg(rows, rows2, b), ls_grad_bound(N, N, d, b))
+    out[f"kernel 3 {WIDE_M}x{N}"] = (
+        lambda: _kuf.launch_kuf(zg, xg, var, family), kuf_bound(WIDE_M, N, d))
+    return out
 
 
 def _wide_family(d: int, family: str, inputs, card: str) -> dict:
     """Kernels 1-3 of one family at input dimension d > 32 against their
     plain versions (each timed once, as it is computed), repeats bitwise,
-    then the kernels' times beside their bounds: {row: (ms, bound)} and the
-    errors and plain times of the kernels-line rows."""
+    kernel 2 also on the data translated by +100 in every coordinate
+    against the untranslated plain gradient, then the kernels' times beside
+    their bounds: {"times": {row: (ms, bound)}} and the errors and plain
+    times of the kernels-line rows."""
     from cglb_tpu_torch.ops import kuf as _kuf
     from cglb_tpu_torch.ops import matvec as _mv
 
-    X, Z, P, g, ls, var = inputs
+    X, Z, P, g, ls, var, G = inputs
     rows = _mv.Prepared(X, ls, family)
     rows2 = _mv.Prepared(X, ls, family)
     require(rows.plan.wide, f"D {d}: not the wide plan")
@@ -1782,18 +1926,35 @@ def _wide_family(d: int, family: str, inputs, card: str) -> dict:
             if b == 1 and accurate:
                 out["matvec"] = (abs_sym, plain_ms)
         del plain
-    p = P[:1]
-    ls_plain, ls_plain_ms = once_ms(
-        lambda: _mv.ls_grad_unit_plain(rows.xg, rows.xg, p, g, family))
-    ls_k = _mv.launch_ls_grad(rows, rows, p, g)
-    e, ls_abs = rel_err(ls_k, ls_plain)
-    same = torch.equal(ls_k, _mv.launch_ls_grad(rows, rows, p, g))
-    print(f"{tag} kernel 2 B 1: rel err {e:.3e} (bound {TOL['backward']:g});"
-          f" repeats bitwise equal {same}; plain {ls_plain_ms:.1f} ms",
-          flush=True)
-    require(e <= TOL["backward"], f"{tag} kernel 2")
-    require(same, f"{tag} kernel 2 is not deterministic")
-    out["ls_grad"] = (ls_abs, ls_plain_ms)
+        gb = _wide_g(b, g, G)
+        ls_plain, ls_plain_ms = once_ms(
+            lambda: _mv.ls_grad_unit_plain(rows.xg, rows.xg, p, gb, family))
+        sym = _mv.launch_ls_grad(rows, rows, p, gb)
+        gen = _mv.launch_ls_grad(rows, rows2, p, gb)
+        e_sym, ls_abs = rel_err(sym, ls_plain)
+        e_gen, _ = rel_err(gen, ls_plain)
+        same = (torch.equal(sym, _mv.launch_ls_grad(rows, rows, p, gb))
+                and torch.equal(gen, _mv.launch_ls_grad(rows, rows2, p, gb)))
+        line = (f"{tag} kernel 2 B {b}: rel err K(X, X) {e_sym:.3e}, two "
+                f"prepared sets {e_gen:.3e}")
+        errs = [e_sym, e_gen]
+        if b == 1:  # the expansion's cancellation guard
+            far = _mv.Prepared(X + 100.0, ls, family)
+            far2 = _mv.Prepared(X + 100.0, ls, family)
+            e_far, _ = rel_err(_mv.launch_ls_grad(far, far, p, gb), ls_plain)
+            e_far2, _ = rel_err(_mv.launch_ls_grad(far, far2, p, gb),
+                                ls_plain)
+            line += (f"; translated by +100 against the untranslated plain "
+                     f"gradient: K(X, X) {e_far:.3e}, two sets {e_far2:.3e}")
+            errs += [e_far, e_far2]
+            out["ls_grad"] = (ls_abs, ls_plain_ms)
+            out["translated"] = max(e_far, e_far2)
+            del far, far2
+        print(f"{line} (bound {TOL['backward']:g}); repeats bitwise equal "
+              f"{same}; plain {ls_plain_ms:.1f} ms", flush=True)
+        require(max(errs) <= TOL["backward"], f"{tag} kernel 2 B {b}")
+        require(same, f"{tag} kernel 2 B {b} is not deterministic")
+        del ls_plain
     c = math.sqrt(_mv.GAMMA[family])
     zg, xg = Z * (c / ls), X * (c / ls)
     (kuf_p, e_p), kuf_plain_ms = once_ms(
@@ -1808,28 +1969,10 @@ def _wide_family(d: int, family: str, inputs, card: str) -> dict:
     require(max(kuf_err, e_err) <= TOL["kuf"], f"{tag} kernel 3")
     require(same, f"{tag} kernel 3 is not deterministic")
     out["kuf"] = (kuf_abs, kuf_plain_ms)
-    del ls_plain, kuf_p, e_p, kuf_k, e_k
+    del kuf_p, e_p, kuf_k, e_k, rows, rows2
 
-    def mv(r, c_, b, accurate):
-        return lambda: _mv.launch_matvec(r, c_, P[:b], accurate)
-
-    timed = {
-        "kernel 1 accurate K(X, X) B 1": (
-            mv(rows, rows, 1, True), matvec_bound(N, N, d, 1, True, True)),
-        "kernel 1 CG tier K(X, X) B 1": (
-            mv(rows, rows, 1, False), matvec_bound(N, N, d, 1, False, True)),
-        "kernel 1 accurate K(X, X) B 10": (
-            mv(rows, rows, 10, True), matvec_bound(N, N, d, 10, True, True)),
-        "kernel 1 accurate, two prepared sets, B 1": (
-            mv(rows, rows2, 1, True), matvec_bound(N, N, d, 1, True)),
-        "kernel 2 B 1": (lambda: _mv.launch_ls_grad(rows, rows, p, g),
-                         ls_grad_bound(N, N, d, 1, True)),
-        f"kernel 3 {WIDE_M}x{N}": (
-            lambda: _kuf.launch_kuf(zg, xg, var, family),
-            kuf_bound(WIDE_M, N, d)),
-    }
     out["times"] = {}
-    for name, (fn, bnd) in timed.items():
+    for name, (fn, bnd) in wide_rows(d, family, inputs).items():
         ms = cuda_ms(fn, 3)
         show(f"{family} D {d} {name}", ms, bnd, f" ({card})")
         out["times"][name] = (ms, bnd)
@@ -1849,7 +1992,8 @@ def phase_wide(results: dict, card: str) -> None:
             rows = {
                 "streaming_matvec_wide": (got["matvec"], times[
                     "kernel 1 accurate K(X, X) B 1"]),
-                "ls_grad_wide": (got["ls_grad"], times["kernel 2 B 1"]),
+                "ls_grad_wide": (got["ls_grad"],
+                                 times["kernel 2 K(X, X) B 1"]),
                 "kuf_wide": (got["kuf"], times[f"kernel 3 {WIDE_M}x{N}"])}
             for name, ((abs_err, plain_ms), (ms, bnd)) in rows.items():
                 if d == WIDE_DS[0]:
@@ -1861,11 +2005,18 @@ def phase_wide(results: dict, card: str) -> None:
                     results[name].update({
                         f"max_abs_err_d{d}": abs_err, f"ms_d{d}": ms,
                         f"plain_ms_d{d}": plain_ms, f"bound_ms_d{d}": bnd[0]})
+            b10 = max(WIDE_B)
             results["streaming_matvec_wide"].update({
                 f"ms_cg_tier_d{d}": times["kernel 1 CG tier K(X, X) B 1"][0],
-                f"ms_b10_d{d}": times["kernel 1 accurate K(X, X) B 10"][0],
+                f"ms_b{b10}_d{d}": times[
+                    f"kernel 1 accurate K(X, X) B {b10}"][0],
                 f"ms_general_d{d}": times[
                     "kernel 1 accurate, two prepared sets, B 1"][0]})
+            results["ls_grad_wide"].update({
+                f"ms_b{b10}_d{d}": times[f"kernel 2 K(X, X) B {b10}"][0],
+                f"ms_general_d{d}": times[
+                    "kernel 2 two prepared sets, B 1"][0],
+                f"translated_rel_err_d{d}": got["translated"]})
         del inputs
         torch.cuda.empty_cache()
 
@@ -2292,6 +2443,13 @@ def times_of_tree(tree: Path) -> int:
     for name, (fn, _, _) in kernel_rows("mat32", kernel_inputs()).items():
         out[f"{name} ms"] = cuda_ms(fn, 10)
     torch.cuda.empty_cache()
+    for d in WIDE_DS:  # phase 15's rows: the wide kernels
+        inputs = wide_inputs(d)
+        for name, (fn, bnd) in wide_rows(d, "mat32", inputs).items():
+            out[f"D {d} {name} ms"] = cuda_ms(fn, 3)
+            out[f"D {d} {name} bound ms"] = bnd[0]
+        del inputs
+        torch.cuda.empty_cache()
     # unprofiled: an older tree may lack the profiling module
     out.update(warm_steps(profile=False))
     print(_RESULT + json.dumps(out), flush=True)
@@ -2354,6 +2512,11 @@ def main() -> int:
     steps = warm_steps()
     print(f"[main] warm Adam steps ({card}): {json.dumps(steps)}",
           flush=True)
+    print(f"[main] device time a step (kernels, copies and fills; "
+          f"torch.profiler) {steps['device ms per step, all']:.3f} ms "
+          f"against {1e3 * steps['adam step s']:.3f} ms a step on the host "
+          f"clock, {1e3 * steps['profiled step s']:.3f} ms profiled",
+          flush=True)
     # the main path builds its common terms in one pass: one Kuf a step
     require(steps["launches per step, kuf"] == 1,
             "main path: the common terms were chunked")
@@ -2384,16 +2547,16 @@ def main() -> int:
             + kernels[name]["launches_houseelectric_run"]
             + kernels[name]["launches_mesh_run"])
 
+    wide = "cglb_tpu_torch/csrc/matvec_wide.cuh"
     sources = {"streaming_matvec": ("cglb_tpu_torch/csrc/matvec_kernels.cuh",
                                     "cglb_tpu/ops/matvec_pallas.py:164"),
                "ls_grad": ("cglb_tpu_torch/csrc/matvec_kernels.cuh",
                            "cglb_tpu/ops/matvec_pallas.py:190"),
                "kuf": ("cglb_tpu_torch/csrc/kuf.cu",
                        "cglb_tpu/ops/kuf_pallas.py:186"),
-               "streaming_matvec_wide": ("cglb_tpu_torch/csrc/matvec_wide.cu",
+               "streaming_matvec_wide": (wide,
                                          "cglb_tpu/ops/matvec_pallas.py:164"),
-               "ls_grad_wide": ("cglb_tpu_torch/csrc/matvec_wide.cu",
-                                "cglb_tpu/ops/matvec_pallas.py:190"),
+               "ls_grad_wide": (wide, "cglb_tpu/ops/matvec_pallas.py:190"),
                "kuf_wide": ("cglb_tpu_torch/csrc/kuf.cu",
                             "cglb_tpu/ops/kuf_pallas.py:186")}
     line = {"kernels": [

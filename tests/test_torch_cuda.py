@@ -1,5 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain version at
 small shapes, including the padded widths (D > 8, B not a power of two),
+the wide kernels above 32 input dimensions (both paths, slabs, groups and
+data far from the origin),
 rectangular matvecs and the symmetric path (one prepared point set),
 bitwise-equal repeat launches, kernel 1's gradient with respect to its
 vector, the sharded loss over NCCL at world size 1, one evaluation of the
@@ -145,6 +147,102 @@ def test_matvec_and_ls_grad_kernels_are_deterministic(dev, family, nr, nc, d,
 def test_kuf_kernel_matches_plain(dev, family, dtype, tol, m, n, d):
     rng = np.random.default_rng(1)
     c = math.sqrt(tk.GAMMA[family])
+    zg = torch.tensor(rng.normal(size=(m, d)) * c, device=dev, dtype=dtype)
+    xg = torch.tensor(rng.normal(size=(n, d)) * c, device=dev, dtype=dtype)
+    var = torch.tensor(1.3, device=dev, dtype=dtype)
+    kuf, e = tkuf.launch_kuf(zg, xg, var, family)
+    kuf_p, e_p = tkuf.kuf_unit_plain(zg, xg, var, family)
+    assert _rel(kuf, kuf_p) < tol and _rel(e, e_p) < tol
+
+
+# Above 32 input dimensions: the wide kernels (csrc/matvec_wide.cuh) on the
+# symmetric path (nc = 0: one prepared set) and on two prepared sets, at D 40
+# (one chunk of 32 and one of 8) and D 100 (three of 32, one of 8), with
+# lengthscales sqrt(D) x U(0.5, 2) so that K is not near-diagonal.
+WIDE_CASES = [(700, 0, 40), (700, 0, 100), (500, 300, 40), (300, 500, 100)]
+
+
+def _wide_inputs(dev, family, nr, nc, d, b, shift=0.0):
+    rng = np.random.default_rng(nr + nc + d)
+    ls = torch.tensor(math.sqrt(d) * rng.uniform(0.5, 2.0, size=d),
+                      device=dev)
+    X = torch.tensor(rng.normal(size=(nr, d)), device=dev)
+    rows = tmv.Prepared(X + shift, ls, family)
+    cols = rows if nc == 0 else tmv.Prepared(
+        torch.tensor(rng.normal(size=(nc, d)), device=dev) + shift, ls,
+        family)
+    p = torch.tensor(rng.normal(size=(b, nr)), device=dev)
+    g = torch.tensor(rng.normal(size=(b, cols.n)), device=dev)
+    return rows, cols, p, g
+
+
+@pytest.mark.parametrize("family", ["mat32", "rbf"])
+@pytest.mark.parametrize("b", [1, 8, 10])
+@pytest.mark.parametrize("nr,nc,d", WIDE_CASES)
+def test_wide_kernels_match_plain_and_repeat(dev, family, nr, nc, d, b):
+    """Kernel 1 in both tiers and kernel 2 within their bounds of the plain
+    versions (3e-6, 2e-3, 1e-5 of max abs), at B 1, 8 and 10 (8 + 2),
+    repeat launches bitwise equal."""
+    rows, cols, p, g = _wide_inputs(dev, family, nr, nc, d, b)
+    assert rows.plan.wide
+    want = tmv.matvec_unit_plain(rows.xg, cols.xg, p, family)
+    for accurate, tol in ((True, 3e-6), (False, 2e-3)):
+        got = tmv.launch_matvec(rows, cols, p, accurate)
+        assert _rel(got, want) < tol
+        assert torch.equal(got, tmv.launch_matvec(rows, cols, p, accurate))
+    got = tmv.launch_ls_grad(rows, cols, p, g)
+    want = tmv.ls_grad_unit_plain(rows.xg, cols.xg, p, g, family)
+    assert _rel(got, want) < 1e-5
+    assert torch.equal(got, tmv.launch_ls_grad(rows, cols, p, g))
+
+
+@pytest.mark.parametrize("family", ["mat32", "rbf"])
+@pytest.mark.parametrize("b", [1, 8, 10])
+@pytest.mark.parametrize("d", [40, 100])
+def test_wide_symmetric_matvec_in_slabs_matches_plain(dev, monkeypatch,
+                                                      family, d, b):
+    """The wide kernel 1's symmetric path with its row-sum budget cut so
+    that each launch takes at least 3 slabs of column blocks: both tiers
+    within their bounds, repeats bitwise equal."""
+    n = 2100
+    rows, _, p, _ = _wide_inputs(dev, family, n, 0, d, b)
+    want = tmv.matvec_unit_plain(rows.xg, rows.xg, p, family)
+    monkeypatch.setattr(tmv, "ROW_PARTIAL_BYTES", 4 * tmv.MAX_BATCH * n)
+    groups = -(-b // tmv.MAX_BATCH)
+    before = tmv.launch_matvec.launches
+    got = tmv.launch_matvec(rows, rows, p, True)
+    assert tmv.launch_matvec.launches - before >= 3 * groups
+    assert _rel(got, want) < 3e-6
+    assert torch.equal(got, tmv.launch_matvec(rows, rows, p, True))
+    cg = tmv.launch_matvec(rows, rows, p, False)
+    assert _rel(cg, want) < 2e-3
+    assert torch.equal(cg, tmv.launch_matvec(rows, rows, p, False))
+
+
+@pytest.mark.parametrize("family", ["mat32", "rbf"])
+@pytest.mark.parametrize("nr,nc,d", WIDE_CASES)
+def test_wide_ls_grad_holds_translated_data(dev, family, nr, nc, d):
+    """Kernel 2 forms its per-coordinate sums by the moment expansion, which
+    cancels far from the origin; shifted by each block's first column it
+    gives, on the data translated by +100 in every coordinate, the
+    untranslated gradient within 1e-5 of max abs (the fp32 coordinates
+    themselves round at about 3e-6 there)."""
+    rows, cols, p, g = _wide_inputs(dev, family, nr, nc, d, 1)
+    far = _wide_inputs(dev, family, nr, nc, d, 1, shift=100.0)
+    want = tmv.ls_grad_unit_plain(rows.xg, cols.xg, p, g, family)
+    assert _rel(tmv.launch_ls_grad(far[0], far[1], p, g), want) < 1e-5
+
+
+@pytest.mark.parametrize("family", ["mat32", "rbf"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("m,n,d", [(33, 70, 36), (64, 513, 40),
+                                   (40, 300, 100)])
+def test_wide_kuf_kernel_matches_plain(dev, family, dtype, tol, m, n, d):
+    """Kernel 3 above 32 input dimensions, coordinates padded to a multiple
+    of 8: chunks of 32 and a tail of 8."""
+    rng = np.random.default_rng(d)
+    c = math.sqrt(tk.GAMMA[family] / d)
     zg = torch.tensor(rng.normal(size=(m, d)) * c, device=dev, dtype=dtype)
     xg = torch.tensor(rng.normal(size=(n, d)) * c, device=dev, dtype=dtype)
     var = torch.tensor(1.3, device=dev, dtype=dtype)

@@ -151,11 +151,13 @@ def test_kernel_shape_limits():
 
 @pytest.mark.parametrize("d,width,wide", [
     (1, 8, False), (8, 8, False), (9, 32, False), (32, 32, False),
-    (33, 64, True), (64, 64, True), (100, 128, True), (1000, 1024, True)])
+    (33, 40, True), (36, 40, True), (40, 40, True), (41, 48, True),
+    (64, 64, True), (100, 104, True), (1000, 1000, True)])
 def test_coordinate_plan_at_any_dimension(rng, d, width, wide):
     """Every D >= 1 has a launch plan: the instantiated widths 8 and 32 up
-    to 32 (as before), above it the wide kernels' multiple of WIDE_CHUNK;
-    the packed coordinates are the scaled ones, zero-padded."""
+    to 32 (as before), above it the wide kernels' multiple of WIDE_CHUNK
+    (8: D 40 runs at 40, D 100 at 104); the packed coordinates are the
+    scaled ones, zero-padded."""
     assert tmv.coord_plan(d) == (width, wide)
     assert width % tmv.WIDE_CHUNK == 0 or not wide
     X = torch.tensor(rng.normal(size=(5, d)))
@@ -168,20 +170,42 @@ def test_coordinate_plan_at_any_dimension(rng, d, width, wide):
     assert not packed[:, d:].any()
 
 
+@pytest.mark.parametrize("n,block", [(1, 64), (64, 64), (130, 64),
+                                     (300, 32)])
+def test_block_shifted_columns_are_exact_fp32_differences(rng, n, block):
+    """The wide kernel 2's moment pass stages its columns from
+    ``block_shifted``: each run of ``block`` packed points less the run's
+    first point, the same fp32 subtraction the kernel makes on the rows, so
+    both sides of a pair are shifted by one point and distances are kept;
+    far from the origin the shifted values are the size of the spread."""
+    d = 40
+    X = torch.tensor(rng.normal(size=(n, d)) + 100.0)
+    prep = tmv.Prepared(X, torch.full((d,), 2.0, dtype=torch.float64),
+                        "mat32")
+    x, xs = prep.packed(), prep.block_shifted(block)
+    assert xs.dtype == torch.float32 and xs.shape == x.shape
+    assert xs.is_contiguous() and prep.block_shifted(block) is xs
+    for b0 in range(0, n, block):
+        assert torch.equal(xs[b0:b0 + block], x[b0:b0 + block] - x[b0])
+    assert float(xs.abs().max()) < 20.0 < float(x.abs().max())
+
+
+@pytest.mark.parametrize("d", [36, 40, 100])
 @pytest.mark.parametrize("name,family", FAMILIES)
 def test_cglb_loss_and_grads_match_jax_above_32_dimensions(rng, name,
-                                                          family):
-    """D = 40, the wide plan (coordinates padded to 64; K(X, X) on the
-    general path): the port's CGLB loss on its streaming operator pair,
-    with Kuf from kernel 3's wrapper (plain versions on the CPU), against
-    the JAX package's at one converged v, fp64 common terms and
-    preconditioner in both: 1e-9 on the loss, 1e-7 on every gradient."""
+                                                          family, d):
+    """D = 36, 40 and 100, the wide plan (coordinates padded to 40, 40
+    and 104; K(X, X) on the symmetric path): the port's CGLB loss on its
+    streaming operator pair, with Kuf from kernel 3's wrapper (plain
+    versions on the CPU), against the JAX package's at one converged v,
+    fp64 common terms and preconditioner in both: 1e-9 on the loss, 1e-7
+    on every gradient."""
     from cglb_tpu.models import cglb as jc
     from cglb_tpu.models import sgpr as js
     from cglb_tpu_torch.models import cglb as tc
     from cglb_tpu_torch.models import sgpr as ts
 
-    n, d, m = 300, 40, 12
+    n, m = 300, 12
     X = rng.normal(size=(n, d))
     Y = np.sin(X[:, :1]) + 0.1 * rng.normal(size=(n, 1))
     Z = X[:m].copy()
@@ -232,6 +256,9 @@ def test_cglb_loss_and_grads_match_jax_above_32_dimensions(rng, name,
 
 # launch geometry of the CUDA kernels (pure Python, checked on the CPU)
 
+# the wide kernels above DP 32 (csrc/matvec_wide.cuh): 64 columns a block,
+# 64 rows a staged tile, 2 blocks an SM
+GEO_WIDE = tmv.Geometry(64, 64, 132 * 2)
 GEOMETRIES = [tmv.Geometry(128, 128, 132 * 3), tmv.Geometry(64, 128, 132 * 2),
               tmv.Geometry(64, 64, 114), tmv.Geometry(128, 128, 16)]
 
@@ -288,7 +315,7 @@ def _block_rows(ni, nj, block_cols, col_block, begin, end, symmetric):
 
 @pytest.mark.parametrize("geo", [tmv.Geometry(64, 64, 4),
                                  tmv.Geometry(32, 128, 7),
-                                 tmv.Geometry(128, 128, 396)])
+                                 tmv.Geometry(128, 128, 396), GEO_WIDE])
 @pytest.mark.parametrize("n", [1, 50, 129, 300])
 def test_symmetric_blocks_take_each_pair_once(geo, n):
     """Symmetric launches (one point set): over all blocks, the column side
@@ -437,7 +464,7 @@ def test_one_slab_at_kin40k_shapes(bp):
 
 
 @pytest.mark.parametrize("geo", [tmv.Geometry(64, 64, 4),
-                                 tmv.Geometry(32, 128, 7)])
+                                 tmv.Geometry(32, 128, 7), GEO_WIDE])
 @pytest.mark.parametrize("n", [129, 300])
 def test_symmetric_slabs_take_each_pair_once(geo, n):
     """With a budget that forces several slabs, the launches' blocks (each
@@ -459,6 +486,28 @@ def test_symmetric_slabs_take_each_pair_once(geo, n):
                 for i in both:
                     count[cols, i] += 1
     assert (count == 1).all()
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 300, 26800])
+def test_wide_symmetric_tiles_lie_below_or_on_the_diagonal(n):
+    """The wide kernels decide per staged tile of 64 rows, not per row,
+    which sides a symmetric pair feeds: each tile a column block takes must
+    lie wholly below the block's first column c0 (both sides) or be the
+    block's diagonal tile [c0, c0 + 64) (its columns only).  That holds for
+    every launch the wrapper plans for them: segments of whole tiles,
+    blocks of 64 columns, in one slab or in slabs forced by a small
+    budget."""
+    geo = GEO_WIDE
+    assert geo.block_cols == geo.stage_rows
+    for budget in (tmv.ROW_PARTIAL_BYTES, 4 * n):
+        for s in _check_slab_plan(n, geo, 1, budget):
+            for cb in range(s.cb0, s.cb1):
+                c0 = cb * geo.block_cols
+                c1 = min(n, c0 + geo.block_cols)
+                for begin, end in _segment_bounds(s.row_end, s.segments,
+                                                  s.seg_rows):
+                    for i0 in range(begin, min(end, c1), geo.stage_rows):
+                        assert i0 + geo.stage_rows <= c0 or i0 == c0
 
 
 @pytest.mark.parametrize("family", ["mat32", "rbf"])
