@@ -58,6 +58,24 @@ __device__ __forceinline__ float drho_unscaled_f32(float t) {
   return FAM == RBF ? exp_neg(t) : exp_neg(sqrt_approx(t));
 }
 
+// 16-byte asynchronous copies into shared memory (zero-filled unless ok)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool ok) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Every C entry point returns cudaGetLastError() after its launch, or this
 // code when the wrapper passed a shape the kernels are not instantiated for.
 constexpr int kBadArgument = static_cast<int>(cudaErrorInvalidValue);

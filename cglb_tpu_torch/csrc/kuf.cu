@@ -6,27 +6,56 @@
 // profile applied by XLA, split only because of Mosaic compile limits.
 // Hopper has fp64 in hardware, so one fp64 kernel does both:
 //
-//     t_mn   = sum_d (zg_md - xg_nd)^2        (direct differences, no
-//                                              norm-expansion cancellation)
+//     t_mn   = sum_d (zg_md - xg_nd)^2        (direct differences)
 //     kuf_mn = var * rho(t_mn)
 //     e_mn   = exp(-sqrt(t_mn)) for Matern32, rho(t_mn) for RBF  (optional:
 //              the backward's residual, written only when e != nullptr)
 //
-// with zg = Z sqrt(gamma) / lengthscale, xg = X sqrt(gamma) / lengthscale
-// prepared by the wrapper and zero-padded to DP in {8, 32} columns, or, for
-// D > 32, to a multiple of 8 (kuf_wide_kernel).
+// with zg = Z sqrt(gamma) / lengthscale, xg = X sqrt(gamma) / lengthscale,
+// handed over coordinate-major by the wrapper (ops/kuf.py kuf_operands), as
+// the TPU kernel reads its X blocks: zt [DP, MP] and xt [DP, NP], DP the
+// input dimension rounded up to a multiple of kChunk = 8 (ops/kuf.py
+// kuf_plan, the TPU kernel's _dsub), MP and NP the rows and columns rounded
+// up to the block tile, all padding zero.  One instantiation per family and
+// type takes every DP: the number of chunks is a run-time argument.
 //
-// What bounds it on an H100: writing the [M, N] output (8 bytes an entry,
-// 16 with e; 439 MB at M = 2048, N = 26800), next to one fp64 sqrt and exp
-// per entry.  Design: a block of 32 x 8 threads owns 32 rows (m) x 32 columns
-// (n); the 32 Z rows sit in shared memory and are read as warp broadcasts,
-// each thread keeps its X row in registers and writes 4 rows, so each warp
-// writes 32 consecutive entries of a row (coalesced).  Above DP 32 the
-// wide kernel keeps the same blocks and loops over the coordinates in
-// chunks of kChunk, then of 8 for the rest (DP is a multiple of 8): the
-// chunk of the 32 Z rows in shared memory, of the thread's X row in
-// registers, t of its 4 entries summed across chunks in the same order as
-// one pass would, then the same profile.
+// What bounds it on an H100: the [M, N] output (8 bytes an entry, 16 with e)
+// against the fp64 work, DP subtractions and DP FMAs an entry for t (one
+// issue slot each: at most 75 % of an fp64 bound that counts 3 DP flops)
+// and an fp64 sqrt and exp.  Up to DP 16 the stores bound it; from DP 40
+// on the coordinate loop does.
+//
+// No norm expansion and no tensor cores.  t = |z|^2 + |x|^2 - 2 z.x with the
+// cross term on the fp64 tensor cores (DMMA) cancels: near t = 0 its error
+// is about eps (|z|^2 + |x|^2), and Matern32 takes sqrt(t), so s would be
+// off by about sqrt(eps) |z|, 1e-8 against the 1e-12 contract, and
+// coincident points would not give exactly var.  Direct differences give t
+// = 0 there exactly (tests/test_torch_kuf.py
+// test_x_cotangent_is_zero_and_coincident_points_exact).
+//
+// Design:
+// - Register tiles.  A block of 256 threads owns kBM = 64 rows x kBN = 64
+//   columns; a thread keeps t of kTM = 8 rows (its warp's, consecutive) x
+//   kTN = 2 columns (lane and lane + 32) in registers.  Per coordinate it
+//   reads its 8 Z values as warp broadcasts (16-byte reads) and its 2 X
+//   values (conflict-free 8-byte reads) and does 16 subtractions and 16
+//   FMAs: each staged value feeds 2 or 8 entries.  Under 85 registers, so
+//   three blocks an SM: a thread tile of 8 x 4 (126 registers, two blocks
+//   an SM) was slower up to DP 16 and no faster above (PERF.md).
+// - Staging.  The coordinates go through shared memory in chunks of 8, Z
+//   [8 x 64] and X [8 x 64], through a ring of kStages = 3 buffers filled
+//   by cp.async with 16-byte copies of the coordinate-major rows (coalesced,
+//   unmasked: the padding is zero).  One barrier a chunk: right after it the
+//   copies of the chunk two ahead are issued, which overlap the arithmetic.
+// - t sums the coordinates in order, with no atomics: repeat launches are
+//   bitwise equal.
+// - Epilogue.  The profile in the type's precision (fp64 sqrt and exp for
+//   cglb_kuf_f64), then streaming stores (st.global.cs: the output is not
+//   read again while this kernel runs; plain stores were slower up to DP
+//   40, PERF.md) in which lanes take consecutive columns: each warp store
+//   writes 32 consecutive entries of one row (256 bytes of fp64), of Kuf
+//   and, when asked, of e.  The grid's x axis takes the column tiles, its
+//   y axis the row tiles (at most 65535: M up to 4,194,240).
 
 #include <climits>
 
@@ -35,11 +64,21 @@
 namespace cglb {
 namespace {
 
-constexpr int kCols = 32;           // n per block (threadIdx.x)
-constexpr int kRowThreads = 8;      // threadIdx.y
-constexpr int kRowsPerThread = 4;
-constexpr int kRows = kRowThreads * kRowsPerThread;  // m per block
-constexpr int kChunk = 32;  // coordinates a pass of kuf_wide_kernel
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kTM = 8;                 // rows a thread (and a warp)
+constexpr int kTN = 2;                 // columns a thread
+constexpr int kBM = kWarps * kTM;      // 64 rows a block
+constexpr int kBN = 32 * kTN;          // 64 columns a block
+constexpr int kChunk = 8;              // coordinates a stage
+constexpr int kStages = 3;             // cp.async ring depth
+constexpr int kMinBlocks = 3;          // resident blocks an SM
+
+template <typename T>
+struct Stage {
+  T z[kChunk][kBM];
+  T x[kChunk][kBN];
+};
 
 __device__ __forceinline__ double exp_t(double x) { return exp(x); }
 __device__ __forceinline__ float exp_t(float x) { return expf(x); }
@@ -50,6 +89,56 @@ __device__ __forceinline__ double fma_t(double a, double b, double c) {
 }
 __device__ __forceinline__ float fma_t(float a, float b, float c) {
   return fmaf(a, b, c);
+}
+
+// the kTM values at p (16-byte aligned) as 16-byte shared-memory reads
+__device__ __forceinline__ void load_rows(const double* p, double (&r)[kTM]) {
+#pragma unroll
+  for (int i = 0; i < kTM; i += 2) {
+    const double2 v = *reinterpret_cast<const double2*>(p + i);
+    r[i] = v.x;
+    r[i + 1] = v.y;
+  }
+}
+
+__device__ __forceinline__ void load_rows(const float* p, float (&r)[kTM]) {
+#pragma unroll
+  for (int i = 0; i < kTM; i += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p + i);
+    r[i] = v.x;
+    r[i + 1] = v.y;
+    r[i + 2] = v.z;
+    r[i + 3] = v.w;
+  }
+}
+
+// Copies of the coordinates [d0, d0 + kChunk) of the block's rows and
+// columns into s.  Rows of zt are mp apart, rows of xt np.
+template <typename T>
+__device__ __forceinline__ void stage_chunk(Stage<T>& s,
+                                            const T* __restrict__ zt,
+                                            int mp, int m0,
+                                            const T* __restrict__ xt,
+                                            int np, int n0, int d0) {
+  constexpr int kVec = 16 / sizeof(T);      // values a copy
+  constexpr int kZ = kChunk * kBM / kVec;   // copies of the Z chunk
+  constexpr int kX = kChunk * kBN / kVec;   // copies of the X chunk
+#pragma unroll
+  for (int k0 = 0; k0 < kZ; k0 += kThreads) {
+    const int k = k0 + threadIdx.x;
+    if (kZ % kThreads == 0 || k < kZ) {
+      const int d = k / (kBM / kVec), c = (k % (kBM / kVec)) * kVec;
+      cp_async16(&s.z[d][c], zt + (size_t)(d0 + d) * mp + m0 + c, true);
+    }
+  }
+#pragma unroll
+  for (int k0 = 0; k0 < kX; k0 += kThreads) {
+    const int k = k0 + threadIdx.x;
+    if (kX % kThreads == 0 || k < kX) {
+      const int d = k / (kBN / kVec), c = (k % (kBN / kVec)) * kVec;
+      cp_async16(&s.x[d][c], xt + (size_t)(d0 + d) * np + n0 + c, true);
+    }
+  }
 }
 
 // kuf[o] = var * rho(t) and, with e_out, e_out[o] = e
@@ -65,133 +154,94 @@ __device__ __forceinline__ void write_entry(T t, T var, T* __restrict__ kuf,
     e = exp_t(-s);
     rho = (T(1) + s) * e;
   }
-  kuf[o] = var * rho;
-  if (e_out != nullptr) e_out[o] = e;
-}
-
-template <int FAM, int DP, typename T>
-__global__ void __launch_bounds__(kCols * kRowThreads)
-kuf_kernel(const T* __restrict__ zg, int m, const T* __restrict__ xg, int n,
-           const T* __restrict__ var_ptr, T* __restrict__ kuf,
-           T* __restrict__ e_out) {
-  __shared__ T zs[kRows * DP];
-  const int tid = threadIdx.y * kCols + threadIdx.x;
-  const int m0 = blockIdx.y * kRows;
-  const int col = blockIdx.x * kCols + threadIdx.x;
-
-  for (int k = tid; k < kRows * DP; k += kCols * kRowThreads)
-    zs[k] = (m0 + k / DP < m) ? zg[(size_t)m0 * DP + k] : T(0);
-  T xj[DP];
-#pragma unroll
-  for (int d = 0; d < DP; ++d) xj[d] = col < n ? xg[(size_t)col * DP + d] : T(0);
-  __syncthreads();
-  if (col >= n) return;
-  const T var = *var_ptr;
-
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerThread; ++rr) {
-    const int r = threadIdx.y + rr * kRowThreads;
-    const int row = m0 + r;
-    if (row >= m) break;
-    T t = T(0);
-#pragma unroll
-    for (int d = 0; d < DP; ++d) {
-      const T df = zs[r * DP + d] - xj[d];
-      t = fma_t(df, df, t);
-    }
-    write_entry<FAM, T>(t, var, kuf, e_out, (size_t)row * n + col);
-  }
-}
-
-// t[rr] += the coordinates [d0, d0 + W) of the kernel's wide chunk loop
-template <int W, typename T>
-__device__ __forceinline__ void kuf_chunk(T* zs, const T* __restrict__ zg,
-                                          int m, int m0,
-                                          const T* __restrict__ xg, int n,
-                                          int col, int dp, int d0, int tid,
-                                          T (&t)[kRowsPerThread]) {
-  __syncthreads();  // every thread is done with the previous chunk
-  for (int k = tid; k < kRows * W; k += kCols * kRowThreads) {
-    const int r = k / W;
-    zs[k] = m0 + r < m ? zg[(size_t)(m0 + r) * dp + d0 + (k - r * W)] : T(0);
-  }
-  T xj[W];
-#pragma unroll
-  for (int d = 0; d < W; ++d)
-    xj[d] = col < n ? xg[(size_t)col * dp + d0 + d] : T(0);
-  __syncthreads();
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerThread; ++rr) {
-    const int r = threadIdx.y + rr * kRowThreads;
-#pragma unroll
-    for (int d = 0; d < W; ++d) {
-      const T df = zs[r * W + d] - xj[d];
-      t[rr] = fma_t(df, df, t[rr]);
-    }
-  }
+  __stcs(kuf + o, var * rho);
+  if (e_out != nullptr) __stcs(e_out + o, e);
 }
 
 template <int FAM, typename T>
-__global__ void __launch_bounds__(kCols * kRowThreads)
-kuf_wide_kernel(const T* __restrict__ zg, int m, const T* __restrict__ xg,
-                int n, int dp, const T* __restrict__ var_ptr,
-                T* __restrict__ kuf, T* __restrict__ e_out) {
-  __shared__ T zs[kRows * kChunk];
-  const int tid = threadIdx.y * kCols + threadIdx.x;
-  const int m0 = blockIdx.y * kRows;
-  const int col = blockIdx.x * kCols + threadIdx.x;
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+kuf_tile_kernel(const T* __restrict__ zt, int m, int mp,
+                const T* __restrict__ xt, int n, int np, int chunks,
+                const T* __restrict__ var_ptr, T* __restrict__ kuf,
+                T* __restrict__ e_out) {
+  __shared__ __align__(16) Stage<T> stage[kStages];
+  const int lane = threadIdx.x % 32;
+  const int r0 = (threadIdx.x / 32) * kTM;  // the warp's first row
+  const int m0 = blockIdx.y * kBM;
+  const int n0 = blockIdx.x * kBN;
 
-  T t[kRowsPerThread];
+  T t[kTM][kTN];
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerThread; ++rr) t[rr] = T(0);
-  int d0 = 0;
-  for (; d0 + kChunk <= dp; d0 += kChunk)
-    kuf_chunk<kChunk>(zs, zg, m, m0, xg, n, col, dp, d0, tid, t);
-  for (; d0 < dp; d0 += 8)  // the rest, a multiple of 8
-    kuf_chunk<8>(zs, zg, m, m0, xg, n, col, dp, d0, tid, t);
-  if (col >= n) return;
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) t[i][j] = T(0);
+
+#pragma unroll
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (c < chunks) stage_chunk(stage[c], zt, mp, m0, xt, np, n0, c * kChunk);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<kStages - 2>();
+    // chunk c is in place, and every thread is done with chunk c - 1,
+    // whose buffer the next copies overwrite
+    __syncthreads();
+    const int next = c + kStages - 1;
+    if (next < chunks)
+      stage_chunk(stage[next % kStages], zt, mp, m0, xt, np, n0,
+                  next * kChunk);
+    cp_async_commit();
+    const Stage<T>& s = stage[c % kStages];
+#pragma unroll
+    for (int d = 0; d < kChunk; ++d) {
+      T zr[kTM], xr[kTN];
+      load_rows(&s.z[d][r0], zr);
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) xr[j] = s.x[d][lane + 32 * j];
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) {
+          const T df = zr[i] - xr[j];
+          t[i][j] = fma_t(df, df, t[i][j]);
+        }
+    }
+  }
+
   const T var = *var_ptr;
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerThread; ++rr) {
-    const int row = m0 + threadIdx.y + rr * kRowThreads;
+  for (int i = 0; i < kTM; ++i) {
+    const int row = m0 + r0 + i;
     if (row >= m) break;
-    write_entry<FAM, T>(t[rr], var, kuf, e_out, (size_t)row * n + col);
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int col = n0 + lane + 32 * j;
+      if (col < n)
+        write_entry<FAM, T>(t[i][j], var, kuf, e_out, (size_t)row * n + col);
+    }
   }
-}
-
-template <typename T, int FAM, int DP>
-int launch(const T* zg, int m, const T* xg, int n, const T* var, T* kuf, T* e,
-           cudaStream_t stream) {
-  const dim3 grid((n + kCols - 1) / kCols, (m + kRows - 1) / kRows);
-  const dim3 block(kCols, kRowThreads);
-  kuf_kernel<FAM, DP, T><<<grid, block, 0, stream>>>(zg, m, xg, n, var, kuf, e);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const T* zg, long long m, const T* xg, long long n, int dp,
-             int family, const T* var, T* kuf, T* e, void* stream) {
-  if (m <= 0 || n <= 0 || m > INT_MAX || n > INT_MAX ||
-      (m + kRows - 1) / kRows > 65535)
+int dispatch(const T* zt, long long m, long long mp, const T* xt,
+             long long n, long long np, int dp, int family, const T* var,
+             T* kuf, T* e, void* stream) {
+  if (m <= 0 || n <= 0 || mp < m || np < n || mp % kBM != 0 ||
+      np % kBN != 0 || mp / kBM > 65535 || np > INT_MAX || dp < kChunk ||
+      dp % kChunk != 0 || (family != RBF && family != MAT32))
     return kBadArgument;
+  const dim3 grid(static_cast<unsigned>(np / kBN),
+                  static_cast<unsigned>(mp / kBM));
   const auto s = static_cast<cudaStream_t>(stream);
-  const int mi = static_cast<int>(m), ni = static_cast<int>(n);
-  if (family == MAT32 && dp == 8) return launch<T, MAT32, 8>(zg, mi, xg, ni, var, kuf, e, s);
-  if (family == MAT32 && dp == 32) return launch<T, MAT32, 32>(zg, mi, xg, ni, var, kuf, e, s);
-  if (family == RBF && dp == 8) return launch<T, RBF, 8>(zg, mi, xg, ni, var, kuf, e, s);
-  if (family == RBF && dp == 32) return launch<T, RBF, 32>(zg, mi, xg, ni, var, kuf, e, s);
-  if (dp > 32 && dp % 8 == 0 && (family == RBF || family == MAT32)) {
-    const dim3 grid((ni + kCols - 1) / kCols, (mi + kRows - 1) / kRows);
-    const dim3 block(kCols, kRowThreads);
-    if (family == MAT32)
-      kuf_wide_kernel<MAT32, T><<<grid, block, 0, s>>>(zg, mi, xg, ni, dp, var,
-                                                       kuf, e);
-    else
-      kuf_wide_kernel<RBF, T><<<grid, block, 0, s>>>(zg, mi, xg, ni, dp, var,
-                                                     kuf, e);
-    return static_cast<int>(cudaGetLastError());
-  }
-  return kBadArgument;
+  const int mi = static_cast<int>(m), mpi = static_cast<int>(mp);
+  const int ni = static_cast<int>(n), npi = static_cast<int>(np);
+  if (family == MAT32)
+    kuf_tile_kernel<MAT32, T><<<grid, kThreads, 0, s>>>(
+        zt, mi, mpi, xt, ni, npi, dp / kChunk, var, kuf, e);
+  else
+    kuf_tile_kernel<RBF, T><<<grid, kThreads, 0, s>>>(
+        zt, mi, mpi, xt, ni, npi, dp / kChunk, var, kuf, e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -199,18 +249,22 @@ int dispatch(const T* zg, long long m, const T* xg, long long n, int dp,
 
 extern "C" {
 
-// kuf [m, n] = var[0] * rho(zg, xg), var on the device; e [m, n] optional
-// (nullptr to skip)
-int cglb_kuf_f64(const double* zg, long long m, const double* xg, long long n,
-                 int dp, int family, const double* var, double* kuf, double* e,
+// kuf [m, n] = var[0] * rho(zt, xt), var on the device; e [m, n] optional
+// (nullptr to skip).  zt [dp, mp] and xt [dp, np] coordinate-major, mp a
+// multiple of 64, np of 64, dp of 8, zero-padded.
+int cglb_kuf_f64(const double* zt, long long m, long long mp,
+                 const double* xt, long long n, long long np, int dp,
+                 int family, const double* var, double* kuf, double* e,
                  void* stream) {
-  return cglb::dispatch<double>(zg, m, xg, n, dp, family, var, kuf, e, stream);
+  return cglb::dispatch<double>(zt, m, mp, xt, n, np, dp, family, var, kuf,
+                                e, stream);
 }
 
-int cglb_kuf_f32(const float* zg, long long m, const float* xg, long long n,
-                 int dp, int family, const float* var, float* kuf, float* e,
-                 void* stream) {
-  return cglb::dispatch<float>(zg, m, xg, n, dp, family, var, kuf, e, stream);
+int cglb_kuf_f32(const float* zt, long long m, long long mp, const float* xt,
+                 long long n, long long np, int dp, int family,
+                 const float* var, float* kuf, float* e, void* stream) {
+  return cglb::dispatch<float>(zt, m, mp, xt, n, np, dp, family, var, kuf, e,
+                               stream);
 }
 
 }  // extern "C"

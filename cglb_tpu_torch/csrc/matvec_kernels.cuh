@@ -114,23 +114,6 @@ struct MinBlocks {
   static constexpr int value = DP == 8 && B == 1 ? 3 : 1;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool ok) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Copies of the kT x DP coordinates of rows i0.., zero-filled past ni.
 template <int DP, int kT>
 __device__ __forceinline__ void load_coords(float* xs,

@@ -44,8 +44,10 @@ _SIGNATURES = {
                     _I32, _I32, _I64, _I32, _I64, _P, _P, _P],
     "cglb_ls_grad": [_P, _I64, _P, _I64, _P, _P, _I64, _P, _I64, _I32,
                      _I32, _I32, _I32, _I32, _I32, _P, _P],
-    "cglb_kuf_f64": [_P, _I64, _P, _I64, _I32, _I32, _P, _P, _P, _P],
-    "cglb_kuf_f32": [_P, _I64, _P, _I64, _I32, _I32, _P, _P, _P, _P],
+    "cglb_kuf_f64": [_P, _I64, _I64, _P, _I64, _I64, _I32, _I32, _P, _P,
+                     _P, _P],
+    "cglb_kuf_f32": [_P, _I64, _I64, _P, _I64, _I64, _I32, _I32, _P, _P,
+                     _P, _P],
 }
 
 _lib = None

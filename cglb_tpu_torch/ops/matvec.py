@@ -74,12 +74,12 @@ _MAX_SEGMENTS = 32
 # B = 1 where all 21,454 would take 117.8 GB.
 ROW_PARTIAL_BYTES = 1 << 29
 # above 32 input dimensions the coordinates are padded to a multiple of
-# this (the wide kernels' chunks, csrc/matvec_wide.cuh and kuf.cu)
+# this (the wide kernels' chunks, csrc/matvec_wide.cuh)
 WIDE_CHUNK = 8
 
 
 class CoordPlan(NamedTuple):
-    """How the CUDA kernels 1-3 take d input dimensions: coordinates
+    """How the CUDA kernels 1-2 take d input dimensions: coordinates
     zero-padded to ``width`` columns; ``wide`` above 32, where the kernels
     stream the coordinates in chunks (kernels 1-2 on both paths, as below
     32)."""

@@ -9,14 +9,17 @@ Phases, each of which fails the run (non-zero exit) on error:
 1. device and build: the card's name and power limit (nvidia-smi), then the
    CUDA kernels built from cglb_tpu_torch/csrc with nvcc, and the
    ``-Xptxas -v`` registers and spills of kernels 1 and 2 (narrow and
-   wide);
+   wide) and of kernel 3 (per family and type);
 2. each kernel against its plain PyTorch version at the main path's shapes
    (N = 26800, D = 8, M = 2048, B = 1, both kernel families; kernel 1 also
    at the prediction shapes 26800 x 13200 and 13200 x 26800): errors
    relative to max |plain|, bitwise-equal repeat launches, median times from
    CUDA events beside each kernel's bound (the larger of its operations over
    the card's peak rate and its bytes over the memory rate), and, for
-   context, torch.mv over a materialized fp32 K;
+   context, torch.mv over a materialized fp32 K; then kernel 3 at the
+   registry datasets' widths D 9, 17 and 27 (padded to 16, 24, 32; M 2048,
+   N 26800, both families) against its plain version, with e and without,
+   repeats bitwise, times beside bounds;
 3. the main path: the port's CLI trainer in-process,
    ``train -n 5 -d Wilson_kin40k -o adam_0.01 cglb -m cglb -k Matern32 -i cv
    -M 2048`` in fp64, its results.json checked and the kernels' launch
@@ -65,7 +68,9 @@ Phases, each of which fails the run (non-zero exit) on error:
     version in both tiers, repeats bitwise equal; at houseelectric's
     N_train 1,373,017, D 11, B 1 against the general path (also a kernel:
     the plain version is O(N^2) too slow there), with the times of kernels
-    1-3 at that size beside their bounds (counted at D 11);
+    1-2 at that size beside their bounds (counted at D 11), and kernel 3 on
+    one chunk of its common terms (1024 x 65536, D 11, padded to 16)
+    against its plain version and beside its bound;
 13. the chunked common terms at the main path's shapes: the CGLB loss and
     every gradient with 4096-column chunks, each recomputed in the
     backward, against the one pass, at one fixed v, to 1e-10 relative,
@@ -81,7 +86,8 @@ Phases, each of which fails the run (non-zero exit) on error:
     than at the start, elbo and cg_lower_bound at most the upper bound,
     finite test rmse and nlpd;
 15. input dimensions above 32, where the wide kernels run: kernels 1-3 at D
-    40 and 100 (coordinates padded to 40 and 104), both families, N 26800
+    40 and 100 (coordinates padded to 40 and 104; kernel 3 is the same
+    kernel at every width), both families, N 26800
     (kernels 1 and 2 on K(X, X), the symmetric path, and on two prepared
     sets of the same points, the general path, at B = 1 and 10, kernel 1
     in both tiers; kernel 2 also on the data translated by +100 in every
@@ -132,12 +138,14 @@ a ``cglb_tpu_torch`` package, such as an older commit unpacked with ``git
 archive``) is timed in a process of its own, which builds that tree's
 kernels: the kernel rows of phase 2 (Matern32, without the plain versions),
 phase 15's rows of the wide kernels at D 40 and 100 (Matern32, with their
-bounds) and the warm Adam steps of phase 3.  The median of each row over
+bounds), kernel 3 at D 9, 17 and 27 (2048 x 26800) and on phase 12's
+houseelectric chunk (1024 x 65536, D 11), and the warm Adam steps of phase
+3.  The median of each row over
 the runs of each tree is printed last, beside the card's name and power
 limit.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
+The last three lines are a JSON object with one entry per kernel (kernel 3
+one per D: 8, 9, 11, 17, 27, 40, 100), the card's name and power limit, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 repository beside it, the script exits non-zero before printing a result.
 """
 
@@ -157,6 +165,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -232,6 +241,10 @@ WIDE_ARGS = ["-t", "fp64", "-s", "0", "train", "-n", "3",
              "--holdout-interval", "-1", "-d", "synth_30000x40", "-o",
              "adam_0.01", "cglb", "-m", "cglb", "-k", "Matern32", "-i", "cv",
              "-M", str(WIDE_M)]
+# kernel 3 at the registry datasets' widths (experiments/datasets.py:
+# protein D 9, bike 17, keggundirected 27; kuf_plan pads them to 16, 24,
+# 32), at the main path's M x N; houseelectric's D 11 is phase 12's chunk
+KUF_DS = (9, 17, 27)
 # phase 16: the proof grid (the TPU sweep runs/sweep-tpu-proof's points)
 GRIDS = ROOT / "cglb_tpu_torch" / "experiments" / "grids"
 PROOF_GRID = GRIDS / "proof.toml"
@@ -265,6 +278,27 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def under_load(fn, reps: int) -> str:
+    """The card's SM clock and power draw (nvidia-smi), read 1 s into
+    ``reps`` calls of ``fn`` (about 2 s of work) from a second thread."""
+    read = []
+
+    def sample():
+        time.sleep(1.0)
+        read.append(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader"], check=True, capture_output=True,
+            text=True, timeout=60).stdout.strip().splitlines()[0])
+
+    reader = threading.Thread(target=sample)
+    reader.start()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    reader.join(timeout=60)
+    return read[0] if read else "not read"
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -350,11 +384,15 @@ _STREAMING = re.compile(r"(matvec_kernel|ls_grad_kernel)"
 _WIDE = re.compile(r"(matvec_wide_kernel|ls_grad_wide_kernel)"
                    r"ILi(\d)E()Li(\d)E([df]?)Lb(\d)E")
 _FAMILY_NAME = {"0": "rbf", "1": "mat32"}
+# kernel 3: <FAM, T>
+_KUF = re.compile(r"(kuf_tile_kernel)ILi(\d)E([df])E")
 
 
 def register_report(log: str) -> dict:
     """{(kernel, tier): ["family/DP/B: R regs, spill S/L B", ...]} of
-    kernels 1 and 2, narrow and wide, from an ``-Xptxas -v`` log."""
+    kernels 1 and 2, narrow and wide, and {("kuf_tile_kernel", "family /
+    type"): ["family/type: R regs, spill S/L B", ...]} of kernel 3, from an
+    ``-Xptxas -v`` log."""
     out: dict = {}
     name = None
     spill = ""
@@ -362,7 +400,8 @@ def register_report(log: str) -> dict:
         entry = _ENTRY.search(line)
         if entry:
             name = (_STREAMING.search(entry.group(1))
-                    or _WIDE.search(entry.group(1)))
+                    or _WIDE.search(entry.group(1))
+                    or _KUF.search(entry.group(1)))
             continue
         if name is None:
             continue
@@ -371,7 +410,13 @@ def register_report(log: str) -> dict:
         if found:
             spill = f"{found.group(1)}/{found.group(2)}"
         found = re.search(r"Used (\d+) registers", line)
-        if found:
+        if found and name.re is _KUF:
+            kernel, fam, typ = name.groups()
+            out.setdefault((kernel, "family/type"), []).append(
+                f"{_FAMILY_NAME[fam]}/{'fp64' if typ == 'd' else 'fp32'}: "
+                f"{found.group(1)} regs, spill {spill or '0/0'} B")
+            name, spill = None, ""
+        elif found:
             kernel, fam, dp, b, acc, sym = name.groups()
             dp = dp or "wide"
             tier = {"d": "accurate", "f": "cg", "": "ls_grad"}[acc]
@@ -383,10 +428,12 @@ def register_report(log: str) -> dict:
     return out
 
 
-def print_registers(log: str) -> None:
-    for (kernel, tier), rows in sorted(register_report(log).items()):
-        print(f"[build] {kernel} {tier} (family/DP/B): " + "; ".join(rows),
-              flush=True)
+def print_registers(log: str) -> dict:
+    report = register_report(log)
+    for (kernel, tier), rows in sorted(report.items()):
+        what = tier if tier == "family/type" else f"{tier} (family/DP/B)"
+        print(f"[build] {kernel} {what}: " + "; ".join(rows), flush=True)
+    return report
 
 
 def _sass_loops(listing: str) -> list:
@@ -411,10 +458,11 @@ def _sass_loops(listing: str) -> list:
 
 def sass_census() -> None:
     """Instructions a pair and coordinate in the inner loops of the wide
-    kernels (Matern32, B 1, symmetric), from ``cuobjdump -sass`` of the
-    built library: the t loop (as many FADD as FFMA, one of each per pair
-    and coordinate) and kernel 2's moment loop (FFMA only, one per pair
-    and coordinate); the listings go to chiprun_out/wide_sass.txt."""
+    kernels (Matern32, B 1, symmetric) and of kernel 3 (Matern32, fp64),
+    from ``cuobjdump -sass`` of the built library: the t loop (as many FADD
+    as FFMA, or DADD as DFMA, one of each per pair and coordinate) and
+    kernel 2's moment loop (FFMA only, one per pair and coordinate); the
+    listings go to chiprun_out/wide_sass.txt and kuf_sass.txt."""
     from cglb_tpu_torch.ops import _build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -424,9 +472,20 @@ def sass_census() -> None:
     sass = subprocess.run([tool, "-sass", str(_build.LIB_PATH)], check=True,
                           capture_output=True, text=True,
                           timeout=300).stdout
-    kept = []
+    kept, kuf = [], []
     for part in sass.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
+        if _KUF.search(name) and _KUF.search(name).group(2, 3) == ("1", "d"):
+            kuf.append("Function : " + part)
+            for length, ops in _sass_loops(part):
+                dfma, dadd = ops.get("DFMA", 0), ops.get("DADD", 0)
+                if dfma >= 32 and dadd == dfma:
+                    print(f"[build] SASS kuf_tile_kernel mat32 fp64 t loop: "
+                          f"{length} instructions for {dfma} DFMA, {dadd} "
+                          f"DADD, {ops.get('LDS', 0)} LDS: "
+                          f"{length / dfma:.3f} instructions an entry and "
+                          f"coordinate", flush=True)
+            continue
         found = _WIDE.search(name)
         if not found or found.group(2, 4, 6) != ("1", "1", "1"):
             continue
@@ -445,9 +504,11 @@ def sass_census() -> None:
                   f"a pair and coordinate", flush=True)
     OUT.mkdir(exist_ok=True)
     (OUT / "wide_sass.txt").write_text("".join(kept))
+    (OUT / "kuf_sass.txt").write_text("".join(kuf))
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build the kernels; returns phase 1's register report."""
     from cglb_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -462,8 +523,9 @@ def phase_build() -> None:
           f"(nvcc {_build.build_seconds():.2f} s); {len(regs)} kernel "
           f"instantiations, register report in chiprun_out/"
           "chip_smoke_build.log", flush=True)
-    print_registers(log)
+    report = print_registers(log)
     sass_census()
+    return report
 
 
 # --------------------------------------------------------------------------
@@ -694,6 +756,69 @@ def materialized_mv_ms(rows, p: torch.Tensor) -> float:
     del K
     torch.cuda.empty_cache()
     return ms
+
+
+def kuf_inputs(m: int, n: int, d: int, family: str):
+    """Kernel 3's operands at input dimension d: Z [m, d] and X [n, d]
+    times sqrt(gamma) / lengthscale (lengthscales sqrt(d / 8) x U(0.5, 2),
+    so that Kuf is not near zero at this d) and the variance, on the card,
+    from numpy seed d."""
+    from cglb_tpu_torch.ops.kernels import GAMMA
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(d)
+    ls = math.sqrt(d / 8) * rng.uniform(0.5, 2.0, size=d)
+    c = torch.as_tensor(math.sqrt(GAMMA[family]) / ls, device=dev)
+    zg = torch.as_tensor(rng.normal(size=(m, d)), device=dev) * c
+    xg = torch.as_tensor(rng.normal(size=(n, d)), device=dev) * c
+    return zg, xg, torch.as_tensor(1.7, dtype=torch.float64, device=dev)
+
+
+def check_kuf(tag: str, zg, xg, var, family: str) -> dict:
+    """Kernel 3 against its plain version (Kuf and e, each relative to max
+    |plain|), without e equal to with e, repeats bitwise equal; the kernel
+    timed (10 calls) beside its bound at the data's d, the card's clock and
+    power under it, the plain version timed once: the kernels line's row."""
+    from cglb_tpu_torch.ops import kuf as _kuf
+
+    (kuf_p, e_p), plain_ms = once_ms(
+        lambda: _kuf.kuf_unit_plain(zg, xg, var, family))
+    kuf_k, e_k = _kuf.launch_kuf(zg, xg, var, family)
+    err, abs_err = rel_err(kuf_k, kuf_p)
+    e_err, _ = rel_err(e_k, e_p)
+    again, e_again = _kuf.launch_kuf(zg, xg, var, family)
+    alone, none = _kuf.launch_kuf(zg, xg, var, family, with_e=False)
+    same = (torch.equal(kuf_k, again) and torch.equal(e_k, e_again)
+            and none is None and torch.equal(kuf_k, alone))
+    del kuf_p, e_p, kuf_k, e_k, again, e_again, alone
+    (m, d), n = zg.shape, xg.shape[0]
+    ms = cuda_ms(lambda: _kuf.launch_kuf(zg, xg, var, family), 10)
+    load = under_load(lambda: _kuf.launch_kuf(zg, xg, var, family, False),
+                      int(2000 / ms))
+    bound_ms, bound_by = kuf_bound(m, n, d)
+    print(f"{tag} kernel 3 {m}x{n}, D {d} (width {_kuf.kuf_plan(d)}): rel "
+          f"err {err:.3e}, residual e {e_err:.3e} (bound {TOL['kuf']:g}); "
+          f"without e equal, repeats bitwise equal {same}; plain "
+          f"{plain_ms:.2f} ms", flush=True)
+    show(f"{family} kuf {m}x{n} D {d}", ms, (bound_ms, bound_by),
+         f"; SM clock, power draw under it {load}")
+    require(max(err, e_err) <= TOL["kuf"], f"{tag} kernel 3 D {d}")
+    require(same, f"{tag} kernel 3 D {d} is not deterministic")
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None, d=d,
+                width=_kuf.kuf_plan(d), shape=[m, n], clock_power=load)
+
+
+def phase_kuf_widths(results: dict, card: str) -> None:
+    """Kernel 3 at the registry widths (KUF_DS) at the main path's M x N,
+    both families, against its plain version."""
+    for d in KUF_DS:
+        for family in ("mat32", "rbf"):
+            row = check_kuf(f"[kuf] {family} ({card})",
+                            *kuf_inputs(M, N, d, family), family)
+            if family == "mat32":  # the kernels line holds Matern32's
+                results[f"kuf_d{d}"] = row
 
 
 # --------------------------------------------------------------------------
@@ -937,7 +1062,7 @@ def profiled_steps(step, steps: int) -> dict:
             window_s = time.perf_counter() - t0
         trace_bytes = prof.trace_path.stat().st_size
     tags = {"streaming_matvec": "matvec_kernel", "ls_grad": "ls_grad_kernel",
-            "kuf": "kuf_kernel"}
+            "kuf": "kuf_tile_kernel"}
     device = dict.fromkeys(["all"] + list(tags), 0.0)
     for ev in prof.key_averages():
         if not _device_work(ev, regions):
@@ -1579,7 +1704,6 @@ def _launches_of(fn):
 
 def phase_slabs(results: dict, card: str) -> None:
     from cglb_tpu_torch.models import sgpr as _sgpr
-    from cglb_tpu_torch.ops import kuf as _kuf
     from cglb_tpu_torch.ops import matvec as _mv
 
     family = "mat32"
@@ -1642,12 +1766,13 @@ def phase_slabs(results: dict, card: str) -> None:
                          device=dev) * (scale / lsh)
     xg = Xh[:width] * (scale / lsh)
     var = torch.as_tensor(1.7, dtype=torch.float64, device=dev)
-    kuf_ms = cuda_ms(lambda: _kuf.launch_kuf(zg, xg, var, family), 10)
+    results["kuf_d11"] = check_kuf(f"[slabs] {family} one chunk ({card})",
+                                   zg, xg, var, family)
+    del zg, xg
     bounds = {
         "accurate": matvec_bound(HOUSE_N, HOUSE_N, HOUSE_D, 1, True, True),
         "cg": matvec_bound(HOUSE_N, HOUSE_N, HOUSE_D, 1, False, True),
-        "ls_grad": ls_grad_bound(HOUSE_N, HOUSE_N, HOUSE_D, 1, True),
-        "kuf": kuf_bound(HOUSE_M, width, HOUSE_D)}
+        "ls_grad": ls_grad_bound(HOUSE_N, HOUSE_N, HOUSE_D, 1, True)}
     print(f"[slabs] {family} symmetric {HOUSE_N}^2, D {HOUSE_D} (DP 32), "
           f"B 1, in {slabs} slabs: accurate rel err {err:.3e} against the "
           f"general path (bound {TOL['matvec_accurate']:g}), CG tier "
@@ -1659,8 +1784,6 @@ def phase_slabs(results: dict, card: str) -> None:
     show(f"{family} streaming_matvec {HOUSE_N}^2 CG tier", cg_ms,
          bounds["cg"])
     show(f"{family} ls_grad {HOUSE_N}^2", ls_ms, bounds["ls_grad"])
-    show(f"{family} kuf {HOUSE_M}x{width} (one chunk)", kuf_ms,
-         bounds["kuf"])
     require(err <= TOL["matvec_accurate"], "houseelectric matvec accurate")
     require(cg_err <= TOL["matvec_cg"], "houseelectric matvec CG tier")
     require(same, "houseelectric matvec repeat launches differ")
@@ -1672,9 +1795,6 @@ def phase_slabs(results: dict, card: str) -> None:
         "general_ms_houseelectric": general_ms})
     results["ls_grad"].update({"ms_houseelectric": ls_ms,
                                "bound_ms_houseelectric": bounds["ls_grad"][0]})
-    results["kuf"].update({"ms_houseelectric_chunk": kuf_ms,
-                           "bound_ms_houseelectric_chunk": bounds["kuf"][0],
-                           "chunk_width": width})
     del Xh, rows, rows2, sym, again, sym_cg, cg_again, general
     torch.cuda.empty_cache()
 
@@ -1891,9 +2011,8 @@ def _wide_family(d: int, family: str, inputs, card: str) -> dict:
     plain versions (each timed once, as it is computed), repeats bitwise,
     kernel 2 also on the data translated by +100 in every coordinate
     against the untranslated plain gradient, then the kernels' times beside
-    their bounds: {"times": {row: (ms, bound)}} and the errors and plain
-    times of the kernels-line rows."""
-    from cglb_tpu_torch.ops import kuf as _kuf
+    their bounds: {"times": {row: (ms, bound)}}, the errors and plain times
+    of kernels 1-2's kernels-line rows and kernel 3's row (check_kuf)."""
     from cglb_tpu_torch.ops import matvec as _mv
 
     X, Z, P, g, ls, var, G = inputs
@@ -1956,20 +2075,8 @@ def _wide_family(d: int, family: str, inputs, card: str) -> dict:
         require(same, f"{tag} kernel 2 B {b} is not deterministic")
         del ls_plain
     c = math.sqrt(_mv.GAMMA[family])
-    zg, xg = Z * (c / ls), X * (c / ls)
-    (kuf_p, e_p), kuf_plain_ms = once_ms(
-        lambda: _kuf.kuf_unit_plain(zg, xg, var, family))
-    kuf_k, e_k = _kuf.launch_kuf(zg, xg, var, family)
-    kuf_err, kuf_abs = rel_err(kuf_k, kuf_p)
-    e_err, _ = rel_err(e_k, e_p)
-    same = torch.equal(kuf_k, _kuf.launch_kuf(zg, xg, var, family)[0])
-    print(f"{tag} kernel 3 {WIDE_M}x{N}: rel err {kuf_err:.3e}, residual e "
-          f"{e_err:.3e} (bound {TOL['kuf']:g}); repeats bitwise equal "
-          f"{same}; plain {kuf_plain_ms:.1f} ms", flush=True)
-    require(max(kuf_err, e_err) <= TOL["kuf"], f"{tag} kernel 3")
-    require(same, f"{tag} kernel 3 is not deterministic")
-    out["kuf"] = (kuf_abs, kuf_plain_ms)
-    del kuf_p, e_p, kuf_k, e_k, rows, rows2
+    out["kuf"] = check_kuf(tag, Z * (c / ls), X * (c / ls), var, family)
+    del rows, rows2
 
     out["times"] = {}
     for name, (fn, bnd) in wide_rows(d, family, inputs).items():
@@ -1989,12 +2096,12 @@ def phase_wide(results: dict, card: str) -> None:
             if family != "mat32":  # the kernels line holds Matern32's
                 continue
             times = got["times"]
+            results[f"kuf_d{d}"] = got["kuf"]
             rows = {
                 "streaming_matvec_wide": (got["matvec"], times[
                     "kernel 1 accurate K(X, X) B 1"]),
                 "ls_grad_wide": (got["ls_grad"],
-                                 times["kernel 2 K(X, X) B 1"]),
-                "kuf_wide": (got["kuf"], times[f"kernel 3 {WIDE_M}x{N}"])}
+                                 times["kernel 2 K(X, X) B 1"])}
             for name, ((abs_err, plain_ms), (ms, bnd)) in rows.items():
                 if d == WIDE_DS[0]:
                     results[name] = dict(
@@ -2044,8 +2151,9 @@ def phase_wide_cli(results: dict, card: str) -> None:
     require("test/rmse" in metrics and "test/nlpd" in metrics,
             "wide: test rmse / nlpd")
     require_all_launched(launches, "wide")
-    for name in _counters():
+    for name in ("streaming_matvec", "ls_grad"):
         results[f"{name}_wide"]["launches"] = launches[name]
+    results["kuf_d40"]["launches_wide_run"] = launches["kuf"]
     results["_wide"] = {"step_losses": losses, "wall_s": out["wall_s"],
                         **{k: res[k] for k in (
                             "loss", "elbo", "cg_lower_bound",
@@ -2436,6 +2544,8 @@ def times_of_tree(tree: Path) -> int:
     ``tree`` as one RESULT line (this process only)."""
     sys.path.insert(0, str(tree))
     import cglb_tpu_torch
+    from cglb_tpu_torch.models import sgpr as _sgpr
+    from cglb_tpu_torch.ops import kuf as _kuf
 
     require(Path(cglb_tpu_torch.__file__).resolve().is_relative_to(tree),
             f"no cglb_tpu_torch package in {tree}")
@@ -2449,6 +2559,16 @@ def times_of_tree(tree: Path) -> int:
             out[f"D {d} {name} ms"] = cuda_ms(fn, 3)
             out[f"D {d} {name} bound ms"] = bnd[0]
         del inputs
+        torch.cuda.empty_cache()
+    # kernel 3 at the registry widths and at phase 12's houseelectric chunk
+    for m, n, d in [(M, N, d) for d in KUF_DS] + [
+            (HOUSE_M, _sgpr.chunk_width(HOUSE_N, HOUSE_M), HOUSE_D)]:
+        zg, xg, var = kuf_inputs(m, n, d, "mat32")
+        name = f"kernel 3 {m}x{n} D {d}"
+        out[f"{name} ms"] = cuda_ms(
+            lambda: _kuf.launch_kuf(zg, xg, var, "mat32"), 10)
+        out[f"{name} bound ms"] = kuf_bound(m, n, d)[0]
+        del zg, xg
         torch.cuda.empty_cache()
     # unprofiled: an older tree may lack the profiling module
     out.update(warm_steps(profile=False))
@@ -2471,6 +2591,9 @@ def compare(trees, card: str) -> int:
         res = json.loads(lines[-1][len(_RESULT):])
         print(f"[compare] {json.dumps(res)}", flush=True)
         results.setdefault(res.pop("tree"), []).append(res)
+    OUT.mkdir(exist_ok=True)  # every run's rows (the printed medians are long)
+    (OUT / "compare.json").write_text(json.dumps(
+        {"card": card, "runs": results}, indent=1))
     print(f"[compare] medians over the runs of each tree ({card}):")
     for tree, runs in results.items():
         print(f"[compare] {tree}: " + ", ".join(
@@ -2505,9 +2628,10 @@ def main() -> int:
     if args.protocol_adam:
         return protocol_adam(card)
     t0 = time.perf_counter()
-    phase_build()
+    registers = phase_build()
     kernels: dict = {}
     phase_kernels(kernels)
+    phase_kuf_widths(kernels, card)
     phase_main_path(kernels)
     steps = warm_steps()
     print(f"[main] warm Adam steps ({card}): {json.dumps(steps)}",
@@ -2547,18 +2671,27 @@ def main() -> int:
             + kernels[name]["launches_houseelectric_run"]
             + kernels[name]["launches_mesh_run"])
 
+    # kernel 3 is one kernel at every width: each of its rows (by D) carries
+    # its launches over the main paths, the D 40 CLI run's included
+    kuf_rows = ["kuf"] + [f"kuf_d{d}" for d in sorted(
+        (11,) + KUF_DS + WIDE_DS)]
+    kernels["kuf"].update(d=D, width=D, shape=[M, N])
+    kuf_launches = (kernels["kuf"]["launches"]
+                    + kernels["kuf_d40"]["launches_wide_run"])
+    kuf_regs = "; ".join(registers.get(("kuf_tile_kernel", "family/type"),
+                                       []))
+    for name in kuf_rows:
+        kernels[name].update(launches=kuf_launches, registers=kuf_regs)
     wide = "cglb_tpu_torch/csrc/matvec_wide.cuh"
+    kuf = ("cglb_tpu_torch/csrc/kuf.cu", "cglb_tpu/ops/kuf_pallas.py:186")
     sources = {"streaming_matvec": ("cglb_tpu_torch/csrc/matvec_kernels.cuh",
                                     "cglb_tpu/ops/matvec_pallas.py:164"),
                "ls_grad": ("cglb_tpu_torch/csrc/matvec_kernels.cuh",
                            "cglb_tpu/ops/matvec_pallas.py:190"),
-               "kuf": ("cglb_tpu_torch/csrc/kuf.cu",
-                       "cglb_tpu/ops/kuf_pallas.py:186"),
                "streaming_matvec_wide": (wide,
                                          "cglb_tpu/ops/matvec_pallas.py:164"),
                "ls_grad_wide": (wide, "cglb_tpu/ops/matvec_pallas.py:190"),
-               "kuf_wide": ("cglb_tpu_torch/csrc/kuf.cu",
-                            "cglb_tpu/ops/kuf_pallas.py:186")}
+               **{name: kuf for name in kuf_rows}}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **kernels[name]} for name, (src, rep) in sources.items()],

@@ -3,6 +3,8 @@ small shapes, including the padded widths (D > 8, B not a power of two),
 the wide kernels above 32 input dimensions (both paths, slabs, groups and
 data far from the origin),
 rectangular matvecs and the symmetric path (one prepared point set),
+kernel 3 at D 2-100 on and off its tiles, with e and without, and at
+coincident points (exactly var),
 bitwise-equal repeat launches, kernel 1's gradient with respect to its
 vector, the sharded loss over NCCL at world size 1, one evaluation of the
 scipy bridge against the CPU, short CLI runs
@@ -140,19 +142,53 @@ def test_matvec_and_ls_grad_kernels_are_deterministic(dev, family, nr, nc, d,
                        tmv.launch_ls_grad(rows, cols, p, g))
 
 
-@pytest.mark.parametrize("family", ["mat32", "rbf"])
-@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
-                                       (torch.float32, 1e-5)])
-@pytest.mark.parametrize("m,n,d", [(33, 70, 2), (64, 513, 17)])
-def test_kuf_kernel_matches_plain(dev, family, dtype, tol, m, n, d):
-    rng = np.random.default_rng(1)
-    c = math.sqrt(tk.GAMMA[family])
+def _kuf_matches_plain(dev, family, dtype, tol, m, n, d, seed, c):
+    """Kernel 3 against its plain version with e and without, repeat
+    launches bitwise equal; coordinates N(0, c^2)."""
+    rng = np.random.default_rng(seed)
     zg = torch.tensor(rng.normal(size=(m, d)) * c, device=dev, dtype=dtype)
     xg = torch.tensor(rng.normal(size=(n, d)) * c, device=dev, dtype=dtype)
     var = torch.tensor(1.3, device=dev, dtype=dtype)
     kuf, e = tkuf.launch_kuf(zg, xg, var, family)
     kuf_p, e_p = tkuf.kuf_unit_plain(zg, xg, var, family)
+    assert kuf.shape == (m, n) and e.shape == (m, n)
     assert _rel(kuf, kuf_p) < tol and _rel(e, e_p) < tol
+    only, none = tkuf.launch_kuf(zg, xg, var, family, with_e=False)
+    assert none is None and torch.equal(only, kuf)
+    again, e_again = tkuf.launch_kuf(zg, xg, var, family)
+    assert torch.equal(again, kuf) and torch.equal(e_again, e)
+
+
+# Kernel 3 (one kernel at every width, csrc/kuf.cu): D at and between the
+# widths kuf_plan pads to (8, 16, 24, 32), M and N on and off its 64 x 64
+# tiles
+@pytest.mark.parametrize("family", ["mat32", "rbf"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("m,n,d", [(33, 70, 2), (64, 513, 17), (1, 1, 9),
+                                   (63, 127, 11), (1000, 4097, 16),
+                                   (1, 4097, 27), (1000, 1, 32),
+                                   (63, 4097, 17), (1000, 127, 9)])
+def test_kuf_kernel_matches_plain(dev, family, dtype, tol, m, n, d):
+    _kuf_matches_plain(dev, family, dtype, tol, m, n, d, 1,
+                       math.sqrt(tk.GAMMA[family]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [2, 11, 40, 100])
+def test_kuf_kernel_coincident_points_give_var_exactly(dev, dtype, d):
+    """Direct differences: a column equal to a row gives t = 0 exactly, so
+    Kuf = var and e = 1 to the bit (a norm expansion would not)."""
+    rng = np.random.default_rng(d)
+    zg = torch.tensor(rng.normal(size=(70, d)), device=dev, dtype=dtype)
+    xg = torch.tensor(rng.normal(size=(300, d)), device=dev, dtype=dtype)
+    xg[130:200] = zg
+    var = torch.tensor(1.3, device=dev, dtype=dtype)
+    rows = torch.arange(70, device=dev)
+    for family in ("mat32", "rbf"):
+        kuf, e = tkuf.launch_kuf(zg, xg, var, family)
+        assert torch.equal(kuf[rows, rows + 130], var.expand(70))
+        assert torch.equal(e[rows, rows + 130], torch.ones_like(e[0, :70]))
 
 
 # Above 32 input dimensions: the wide kernels (csrc/matvec_wide.cuh) on the
@@ -237,18 +273,15 @@ def test_wide_ls_grad_holds_translated_data(dev, family, nr, nc, d):
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
 @pytest.mark.parametrize("m,n,d", [(33, 70, 36), (64, 513, 40),
-                                   (40, 300, 100)])
+                                   (40, 300, 100), (1, 127, 33),
+                                   (1000, 4097, 40), (63, 1, 100),
+                                   (1000, 127, 100)])
 def test_wide_kuf_kernel_matches_plain(dev, family, dtype, tol, m, n, d):
     """Kernel 3 above 32 input dimensions, coordinates padded to a multiple
-    of 8: chunks of 32 and a tail of 8."""
-    rng = np.random.default_rng(d)
-    c = math.sqrt(tk.GAMMA[family] / d)
-    zg = torch.tensor(rng.normal(size=(m, d)) * c, device=dev, dtype=dtype)
-    xg = torch.tensor(rng.normal(size=(n, d)) * c, device=dev, dtype=dtype)
-    var = torch.tensor(1.3, device=dev, dtype=dtype)
-    kuf, e = tkuf.launch_kuf(zg, xg, var, family)
-    kuf_p, e_p = tkuf.kuf_unit_plain(zg, xg, var, family)
-    assert _rel(kuf, kuf_p) < tol and _rel(e, e_p) < tol
+    of 8 (kuf_plan: 33 and 36 at 40, 100 at 104) and streamed in chunks of
+    8."""
+    _kuf_matches_plain(dev, family, dtype, tol, m, n, d, d,
+                       math.sqrt(tk.GAMMA[family] / d))
 
 
 def test_function_gradients_on_the_card_match_cpu(dev):

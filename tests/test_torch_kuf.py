@@ -1,6 +1,8 @@
 """PyTorch port: the fused Kuf builder's plain version (kernel 3 on the CPU)
 and its autograd Function against the JAX package's Pallas builder in
-interpret mode and against dense fp64.
+interpret mode and against dense fp64, at D 4 and at the registry widths
+kernel 3 pads to 16, 24 and 32; its padding plan (``kuf_plan``) and the
+coordinate-major operands the wrapper hands the kernel (``kuf_operands``).
 
 Tolerances: 1e-10 on values against the Pallas df32 route (its own
 contract); f32 grade (2e-5 * scale) on gradients against it, whose backward
@@ -41,9 +43,19 @@ def _pallas(kern, Z, X):
                          interpret=True)
 
 
-@pytest.mark.parametrize("family", FAMILIES)
-def test_forward_matches_pallas_and_dense(rng, family):
-    jkern, tkern, Z, X = _setup(rng, family)
+# D 4, and the registry datasets' widths that kernel 3 pads to 16, 24 and
+# 32 (protein 9, houseelectric 11, bike 17, keggundirected 27): one family
+# each, to keep the interpret-mode calls few
+CASES = [pytest.param(f, 4, id=f) for f in FAMILIES] + [
+    pytest.param(f, d, id=f"{f}-d{d}") for f, d in (
+        ("Matern32", 9), ("Matern32", 11), ("SquaredExponential", 17),
+        ("Matern32", 27))]
+
+
+@pytest.mark.parametrize("family,d", CASES)
+def test_forward_matches_pallas_and_dense(rng, family, d):
+    jkern, tkern, Z, X = _setup(rng, family, d=d)
+    Z, X = Z * np.sqrt(4 / d), X * np.sqrt(4 / d)  # K off the diagonal
     got = tkuf.kuf(tkern, torch.tensor(Z), torch.tensor(X)).detach().numpy()
     pallas = np.asarray(_pallas(jkern, jnp.asarray(Z), X))
     dense = np.asarray(jk.K(jkern, jnp.asarray(Z), jnp.asarray(X)))
@@ -52,9 +64,10 @@ def test_forward_matches_pallas_and_dense(rng, family):
     assert np.max(np.abs(got - dense)) / scale < 1e-12
 
 
-@pytest.mark.parametrize("family", FAMILIES)
-def test_backward_matches_pallas_and_dense(rng, family):
-    jkern, tkern, Z, X = _setup(rng, family)
+@pytest.mark.parametrize("family,d", CASES)
+def test_backward_matches_pallas_and_dense(rng, family, d):
+    jkern, tkern, Z, X = _setup(rng, family, d=d)
+    Z, X = Z * np.sqrt(4 / d), X * np.sqrt(4 / d)
     W = rng.normal(size=(Z.shape[0], X.shape[0]))
 
     def loss_pallas(kern, Zv):
@@ -106,9 +119,9 @@ def test_residual_e_only_when_a_gradient_is_needed(rng):
 @pytest.mark.parametrize("d", [33, 40, 100])
 def test_forward_and_backward_match_dense_above_32_dimensions(rng, family,
                                                               d):
-    """The wide plan of kernel 3 (D > 32, coordinates padded to a multiple
-    of 32): values to 1e-12 and gradients to 1e-9 against dense fp64 in the
-    JAX package."""
+    """Kernel 3 above 32 input dimensions (coordinates padded to a
+    multiple of 8 by kuf_plan): values to 1e-12 and gradients to 1e-9
+    against dense fp64 in the JAX package."""
     jkern, tkern, Z, X = _setup(rng, family, m=12, n=40, d=d)
     Z, X = Z * np.sqrt(4 / d), X * np.sqrt(4 / d)  # K off the diagonal
     W = rng.normal(size=(12, 40))
@@ -126,3 +139,38 @@ def test_forward_and_backward_match_dense_above_32_dimensions(rng, family,
         want = np.asarray(want)
         np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                    atol=1e-9 * np.max(np.abs(want)))
+
+
+@pytest.mark.parametrize("d,width", [(1, 8), (8, 8), (9, 16), (11, 16),
+                                     (16, 16), (17, 24), (27, 32), (32, 32),
+                                     (33, 40), (40, 40), (100, 104),
+                                     (1000, 1000)])
+def test_kuf_plan_pads_to_a_multiple_of_8(d, width):
+    """Kernel 3's own padding (the TPU kernel's _dsub): a multiple of 8,
+    D 11 at 16 where kernels 1-2 take 32."""
+    assert tkuf.kuf_plan(d) == width
+    assert tkuf.kuf_plan(d) % tkuf.KUF_CHUNK == 0
+
+
+def test_kuf_plan_rejects_no_dimensions():
+    with pytest.raises(ValueError):
+        tkuf.kuf_plan(0)
+
+
+@pytest.mark.parametrize("m,n,d", [(1, 1, 1), (63, 127, 11), (64, 65, 27),
+                                   (5, 200, 100)])
+def test_kuf_operands_are_coordinate_major_and_zero_padded(rng, m, n, d):
+    """What the wrapper hands kernel 3: zg and xg transposed to [width,
+    rows rounded up to the tile], the scaled coordinates themselves, zeros
+    elsewhere."""
+    zg = torch.tensor(rng.normal(size=(m, d)))
+    xg = torch.tensor(rng.normal(size=(n, d)))
+    zt, xt, width = tkuf.kuf_operands(zg, xg)
+    assert width == tkuf.kuf_plan(d)
+    for got, src, tile in ((zt, zg, tkuf.KUF_TILE[0]),
+                           (xt, xg, tkuf.KUF_TILE[1])):
+        rows = src.shape[0]
+        assert got.shape == (width, -(-rows // tile) * tile)
+        assert got.dtype == src.dtype and got.is_contiguous()
+        assert torch.equal(got[:d, :rows], src.T)
+        assert not got[d:].any() and not got[:, rows:].any()
