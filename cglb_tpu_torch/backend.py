@@ -320,6 +320,20 @@ class Model:
             vars_.append(v)
         return torch.cat(means, 0), torch.cat(vars_, 0)
 
+    @torch.no_grad()
+    def predict_log_density(self, data, cg_tolerance: float = 1e-6
+                            ) -> torch.Tensor:
+        """log N(Ys | f_mean, f_var + sigma^2) [S] on the model's device,
+        for data = (Xs, Ys): the CGLB kinds at ``cg_tolerance``, the others
+        through their own prediction (cglb_tpu/backend.py:470-475), by
+        :meth:`predict_f_batched` where the JAX package predicts in one
+        batch."""
+        X = self.data[0]
+        Xs, Ys = (torch.as_tensor(a, dtype=X.dtype, device=X.device)
+                  for a in data)
+        f_mean, f_var = self.predict_f_batched(Xs, cg_tolerance=cg_tolerance)
+        return _pld(f_mean, f_var, self.params.noise_variance.value, Ys)
+
     def parameter_dict(self) -> Dict[str, np.ndarray]:
         return self.params.parameter_dict()
 

@@ -45,15 +45,14 @@ from .. import config as _config
 from ..ops import cg as _cg
 from ..ops import chol as _chol
 from ..ops import preconditioners as _pc
-from ..ops.kuf import kuf as _kuf
 from ..ops.operators import make_dense_operator
-from .gaussian import mean_apply
-from .sgpr import (CommonTerms, SGPRParams, common_terms, kuf_weighted,
-                   n2m_log_trace)
+from .gaussian import mean_apply, predict_log_density
+from .sgpr import (CommonTerms, SGPRParams, _cache_solves, _predict_var,
+                   common_terms, kuf_weighted, n2m_log_trace)
 
 __all__ = ["CGLBConfig", "CGLBAux", "init_v0", "bound", "loss",
            "PredictCache", "predict_prepare", "predict_from_cache",
-           "predict_f"]
+           "predict_f", "cglb_predict_log_density"]
 
 
 @dataclass(frozen=True)
@@ -241,7 +240,6 @@ class PredictCache(NamedTuple):
     LB: torch.Tensor  # [M, M]
 
 
-@torch.no_grad()
 def predict_prepare(params: SGPRParams, X, Y, v0,
                     cfg: CGLBConfig = CGLBConfig(),
                     cg_tolerance: Optional[float] = 1e-3,
@@ -250,6 +248,10 @@ def predict_prepare(params: SGPRParams, X, Y, v0,
                     mesh=None) -> PredictCache:
     """Common terms, the CG solve at ``cg_tolerance`` (None, vzero and the
     joint v reuse v0 as is) and the [M, D] residual projection, once.
+    Differentiable, as the JAX function is, except through the CG solve:
+    its v carries no gradient (``stop_gradient`` there, ``torch.no_grad``
+    in ops/cg.py here); callers that need no gradient run it under
+    ``torch.no_grad``.
     Where CG with an fp32 preconditioner ends above the tolerance, the solve
     runs again from v0 with the fp64 one: at a large variance / noise ratio
     the fp32 apply loses the +I of B = I + A A^T and CG diverges where the
@@ -272,8 +274,10 @@ def predict_prepare(params: SGPRParams, X, Y, v0,
     else:
         # the configured preconditioner, then fp64 if that one failed
         for dtype in dict.fromkeys((cfg.precond_dtype, "float64")):
-            P = _make_precond(ct, sigma_sq, replace(cfg, precond_dtype=dtype),
-                              mesh=mesh)
+            with torch.no_grad():  # it only steers CG
+                P = _make_precond(ct, sigma_sq,
+                                  replace(cfg, precond_dtype=dtype),
+                                  mesh=mesh)
             v, stats = _cg.preconditioned_cg(matvec, err.T, v0, P,
                                              cg_tolerance, cfg.max_cg_iters,
                                              cfg.restart_cg_iters)
@@ -290,11 +294,13 @@ def predict_prepare(params: SGPRParams, X, Y, v0,
     return PredictCache(v=v, c=c, L=ct.L, LB=ct.LB)
 
 
-@torch.no_grad()
 def predict_from_cache(params: SGPRParams, cache: PredictCache, X, Xnew,
+                       full_cov: bool = False,
                        cross_matvec: Optional[Callable] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-batch posterior from a PredictCache: O(S M + S N), no CG.
+    """Per-batch posterior from a PredictCache: O(S M + S N), no CG.  The
+    variance is SGPR's (``sgpr._predict_var``: marginal [S, D], or with
+    ``full_cov`` the [D, S, S] covariance); it does not depend on v.
 
     cross_matvec: optional p [B, N] -> p K(X, Xnew) [B, S] (the streaming
     kernel), which avoids materializing the [S, N] cross kernel."""
@@ -303,23 +309,31 @@ def predict_from_cache(params: SGPRParams, cache: PredictCache, X, Xnew,
         cg_mean = cross_matvec(v).T  # [S, D]
     else:
         cg_mean = params.kernel.K(Xnew, X) @ v.T
-    Kus = _kuf(params.kernel, params.inducing_Z.value, Xnew)
-    tmp1 = torch.linalg.solve_triangular(cache.L, Kus, upper=False)
-    tmp2 = torch.linalg.solve_triangular(cache.LB, tmp1, upper=False)
-    var = (params.kernel.kdiag(Xnew) + torch.sum(torch.square(tmp2), dim=0)
-           - torch.sum(torch.square(tmp1), dim=0))
-    D = v.shape[0]
+    tmp1, tmp2 = _cache_solves(params, cache, Xnew)
     mean = tmp2.T @ c + cg_mean + mean_apply(params.mean, Xnew)
-    return mean, var[:, None].expand(-1, D)
+    return mean, _predict_var(params, Xnew, tmp1, tmp2, v.shape[0],
+                              full_cov)
 
 
 def predict_f(params: SGPRParams, X, Y, v0, Xnew,
               cfg: CGLBConfig = CGLBConfig(),
-              cg_tolerance: Optional[float] = 1e-3, jitter: float = None,
-              matvec: Optional[Callable] = None,
+              cg_tolerance: Optional[float] = 1e-3, full_cov: bool = False,
+              jitter: float = None, matvec: Optional[Callable] = None,
               cross_matvec: Optional[Callable] = None):
     """CGLB posterior: SGPR mean on the CG residual + K(s, f) v."""
     cache = predict_prepare(params, X, Y, v0, cfg, cg_tolerance, jitter,
                             matvec)
-    return predict_from_cache(params, cache, X, Xnew,
+    return predict_from_cache(params, cache, X, Xnew, full_cov=full_cov,
                               cross_matvec=cross_matvec)
+
+
+def cglb_predict_log_density(params: SGPRParams, X, Y, v0, Xnew, Ynew,
+                             cfg: CGLBConfig = CGLBConfig(),
+                             cg_tolerance: float = 1e-6,
+                             jitter: float = None) -> torch.Tensor:
+    """log N(Ynew | f_mean, f_var + sigma^2) [S] at the tighter CG
+    tolerance 1e-6 (cglb_tpu/models/cglb.py:410-419)."""
+    f_mean, f_var = predict_f(params, X, Y, v0, Xnew, cfg,
+                              cg_tolerance=cg_tolerance, jitter=jitter)
+    return predict_log_density(f_mean, f_var, params.noise_variance.value,
+                               Ynew)

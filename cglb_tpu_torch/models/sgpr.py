@@ -36,13 +36,13 @@ from ..ops.kernels import k_columns
 from ..ops.kuf import kuf as _kuf
 from ..ops.kuf import kuf_of
 from ..transforms import Param, ParamModule
-from .gaussian import ConstantMean, mean_apply
+from .gaussian import ConstantMean, mean_apply, predict_log_density
 
 __all__ = ["SGPRParams", "CommonTerms", "common_terms", "elbo", "elbo_n2m",
            "n2m_log_trace", "upper_bound", "SGPRPredictCache",
            "predict_prepare", "predict_from_cache", "predict_f",
-           "kuf_weighted", "chunk_width", "CHUNK_THRESHOLD_ELEMENTS",
-           "CHUNK_ELEMENTS"]
+           "sgpr_predict_log_density", "kuf_weighted", "chunk_width",
+           "CHUNK_THRESHOLD_ELEMENTS", "CHUNK_ELEMENTS"]
 
 # Above this many Kuf elements (N x M) the common terms go by column chunks.
 # Unchunked, a loss and its gradient hold about six [M, N] tensors at once
@@ -345,10 +345,11 @@ class SGPRPredictCache(NamedTuple):
     LB: torch.Tensor
 
 
-@torch.no_grad()
 def predict_prepare(params: SGPRParams, X, Y, jitter: float = None
                     ) -> SGPRPredictCache:
-    """The batch-independent half of predict_f."""
+    """The batch-independent half of predict_f (differentiable, as the JAX
+    function is; callers that need no gradient run it under
+    ``torch.no_grad``)."""
     jitter = _jitter(jitter)
     err = Y - mean_apply(params.mean, X)
     sigma = torch.sqrt(params.noise_variance.value)
@@ -368,21 +369,46 @@ def _cache_solves(params: SGPRParams, cache, Xnew):
     return tmp1, tmp2
 
 
-def _marginal_var(params: SGPRParams, Xnew, tmp1, tmp2, D: int):
+def _predict_var(params: SGPRParams, Xnew, tmp1, tmp2, D: int,
+                 full_cov: bool = False) -> torch.Tensor:
+    """The posterior variance of f at Xnew from the cache's solves, shared
+    by the SGPR and CGLB predictors: the marginal [S, D], or with
+    ``full_cov`` the covariance K(Xs, Xs) + tmp2^T tmp2 - tmp1^T tmp1 as
+    [D, S, S] (cglb_tpu/models/sgpr.py:819-823).  Both are one variance
+    broadcast over the D outputs by ``expand``, a view where JAX tiles a
+    copy.  K(Xs, Xs) comes from kernel 3, whose diagonal is exactly the
+    kernel variance (t = 0 by direct differences)."""
+    if full_cov:
+        var = (_kuf(params.kernel, Xnew, Xnew) + tmp2.T @ tmp2
+               - tmp1.T @ tmp1)
+        return var[None].expand(D, -1, -1)
     var = (params.kernel.kdiag(Xnew) + torch.sum(torch.square(tmp2), dim=0)
            - torch.sum(torch.square(tmp1), dim=0))
     return var[:, None].expand(-1, D)
 
 
-@torch.no_grad()
-def predict_from_cache(params: SGPRParams, cache: SGPRPredictCache, Xnew
+def predict_from_cache(params: SGPRParams, cache: SGPRPredictCache, Xnew,
+                       full_cov: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-batch SGPR posterior mean and marginal variance: O(S M^2)."""
+    """Per-batch SGPR posterior mean [S, D] and variance (marginal, or the
+    full covariance: :func:`_predict_var`): O(S M^2)."""
     tmp1, tmp2 = _cache_solves(params, cache, Xnew)
     f_mean = tmp2.T @ cache.c + mean_apply(params.mean, Xnew)
-    return f_mean, _marginal_var(params, Xnew, tmp1, tmp2, cache.c.shape[1])
+    return f_mean, _predict_var(params, Xnew, tmp1, tmp2,
+                                cache.c.shape[1], full_cov)
 
 
-def predict_f(params: SGPRParams, X, Y, Xnew, jitter: float = None):
+def predict_f(params: SGPRParams, X, Y, Xnew, full_cov: bool = False,
+              jitter: float = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SGPR posterior at Xnew (the q(f*) of the collapsed bound)."""
     cache = predict_prepare(params, X, Y, jitter)
-    return predict_from_cache(params, cache, Xnew)
+    return predict_from_cache(params, cache, Xnew, full_cov=full_cov)
+
+
+def sgpr_predict_log_density(params: SGPRParams, X, Y, Xnew, Ynew,
+                             jitter: float = None) -> torch.Tensor:
+    """log N(Ynew | f_mean, f_var + sigma^2) [S] at the marginal
+    variance."""
+    f_mean, f_var = predict_f(params, X, Y, Xnew, jitter=jitter)
+    return predict_log_density(f_mean, f_var, params.noise_variance.value,
+                               Ynew)

@@ -1,22 +1,67 @@
-"""Greedy ConditionalVariance inducing-point selection on the model's device.
+"""Greedy ConditionalVariance inducing-point selection.
 
-Counterpart of ``cglb_tpu/utils/inducing.py:71-119``: permute the inputs by
-a numpy generator seeded with ``seed``, then repeatedly pick the point of
+Counterpart of ``cglb_tpu/utils/inducing.py``: permute the inputs by a
+numpy generator seeded with ``seed``, then repeatedly pick the point of
 largest conditional variance given the points picked so far (pivoted
-Cholesky with greedy pivoting).  Same permutation and the same argmax rule
-(first maximum) as ``conditional_variance_numpy`` (:31-68), so both pick
-the same indices.  A host loop of M steps; the argmax never leaves the
-device.
+Cholesky with greedy pivoting).  Two implementations with the same
+permutation and the same argmax rule (first maximum), so both pick the same
+indices:
+
+- ``conditional_variance_numpy``: the host oracle, numpy only, a copy of
+  :31-68 that takes the kernel as two callables;
+- ``conditional_variance``: on the model's device (:71-119), a host loop of
+  M steps whose argmax never leaves the device.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["conditional_variance"]
+__all__ = ["conditional_variance", "conditional_variance_numpy"]
+
+
+def conditional_variance_numpy(
+    X: np.ndarray,
+    M: int,
+    kernel_diag: Callable[[np.ndarray], np.ndarray],
+    kernel_cross: Callable[[np.ndarray, np.ndarray], np.ndarray],
+    seed: int = 0,
+    jitter: float = 1e-12,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Greedy max-conditional-variance selection (host-side).
+
+    Args:
+        X: [N, D] candidate points.
+        kernel_diag: X -> diag K(X, X), shape [N].
+        kernel_cross: (X, z[1,D]) -> K(X, z), shape [N, 1].
+    Returns:
+        (Z [M, D], indices into the original X [M])
+    """
+    N = X.shape[0]
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(N)
+    Xp = X[perm]
+
+    indices = np.zeros(M, dtype=np.int64)
+    di = np.asarray(kernel_diag(Xp), dtype=np.float64) + jitter
+    indices[0] = int(np.argmax(di))
+    ci = np.zeros((M - 1, N), dtype=np.float64)
+    for m in range(M - 1):
+        j = int(indices[m])
+        dj = np.sqrt(di[j])
+        cj = ci[:m, j]
+        Lcol = np.array(kernel_cross(Xp, Xp[j:j + 1]),
+                        dtype=np.float64)[:, 0]
+        Lcol[j] += jitter
+        ei = (Lcol - cj @ ci[:m]) / dj
+        ci[m, :] = ei
+        di = np.clip(di - ei * ei, 0.0, None)
+        indices[m + 1] = int(np.argmax(di))
+    Z = Xp[indices]
+    return Z, perm[indices]
 
 
 @torch.no_grad()

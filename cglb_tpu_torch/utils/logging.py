@@ -55,6 +55,12 @@ class StopWatch:
     def get_elapsed_time(self) -> float:
         return (time.time() - self._start_time) - self._total_paused
 
+    def stop(self) -> float:
+        """The elapsed time; the watch is reset."""
+        elapsed = self.get_elapsed_time()
+        self.reset()
+        return elapsed
+
 
 def _make_tb_writer(logdir: str):
     """The event-file writer in ``logdir``, or None where the file cannot

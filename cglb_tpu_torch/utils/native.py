@@ -13,7 +13,7 @@ this package reads and never edits:
 The library is built at first use with ``g++`` and the flags of
 ``native/Makefile`` into ``cglb_tpu_torch/_build/``, and again when a source
 is newer.  A failed build or load raises: nothing degrades to another
-optimizer.
+optimizer.  :func:`native_available` asks without raising.
 """
 
 from __future__ import annotations
@@ -26,8 +26,8 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["load_native", "conditional_variance_native", "NativeLBFGS",
-           "NATIVE_DIR", "LIB_PATH"]
+__all__ = ["load_native", "native_available", "conditional_variance_native",
+           "NativeLBFGS", "NATIVE_DIR", "LIB_PATH"]
 
 _PKG = Path(__file__).resolve().parent.parent
 NATIVE_DIR = _PKG.parent / "native"
@@ -110,6 +110,16 @@ def load_native() -> ctypes.CDLL:
         fn.restype = restype
     _lib = lib
     return lib
+
+
+def native_available() -> bool:
+    """Whether the native library loads (it is built first where missing
+    or stale): :func:`load_native` that returns False where it raises."""
+    try:
+        load_native()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 def conditional_variance_native(X, M: int, kernel, seed: int = 0,

@@ -123,7 +123,26 @@ Phases, each of which fails the run (non-zero exit) on error:
     their general path) against their plain versions with phase 2's
     tolerances, and a step's seconds and those kernels' times beside their
     bounds, printed as what they are: two ranks sharing one card, not a
-    multi-GPU speed.
+    multi-GPU speed;
+18. prediction at the main path's full width, at phase 4's parameters on
+    the kin40k stand-in (26800 training and 13200 test rows, D 8, M 2048,
+    fp64, Matern32): ``Model.predict_log_density(test, cg_tolerance=1e-6)``
+    on the streaming path, with its CG solves (steps, residual, which
+    preconditioner ended it), kernel launches (kernels 1 and 3, not 2),
+    seconds and -mean(log density), which must lie within 0.01 of the TPU
+    run's test/nlpd 0.6470 and of phase 4's metrics_fn value (CG at 1e-3),
+    with the residual at most 1e-6; the same through the dense operator
+    (K(X, X) in fp64, 5.7 GB), to 1e-4 nats a point; ``sgpr.predict_f``
+    and ``cglb.predict_f`` (streaming operator, ``kernel_cross_matvec``)
+    with ``full_cov=True`` on all 13200 test rows: [1, 13200, 13200] in
+    fp64, symmetric to 1e-12 of its max, its diagonal the marginal
+    variance to 1e-10 of max kdiag, CGLB's equal to SGPR's to 1e-9, and
+    var + sigma^2 I factors, with seconds and peak allocated bytes; kernel
+    3 on K(Xs, Xs) (13200 x 13200, without e) against its plain version to
+    1e-12, its diagonal exactly the variance, repeats bitwise equal, timed
+    beside its bound (8 bytes an entry written); ConditionalVariance on the
+    card against the numpy oracle on the host (26800 rows, M 512, seed 0):
+    the same indices, or a tie to 1e-12 where they first differ.
 
 With ``--protocol-adam`` no phase runs: ``grids/protocol-adam.toml`` (the
 command of the TPU run runs/kin40k-2000-adam-r4, 2000 Adam steps) goes
@@ -145,7 +164,8 @@ the runs of each tree is printed last, beside the card's name and power
 limit.
 
 The last three lines are a JSON object with one entry per kernel (kernel 3
-one per D: 8, 9, 11, 17, 27, 40, 100), the card's name and power limit, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
+one per D: 8, 9, 11, 17, 27, 40, 100, and one on phase 18's K(Xs, Xs)),
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 repository beside it, the script exits non-zero before printing a result.
 """
 
@@ -261,6 +281,16 @@ MESH_ARGS = ["--mesh", "2", "--dist-backend", "gloo"] + CLI_ARGS
 MESH_TOL = {"loss": 1e-9, "grad": 1e-7, "run_loss": 1e-4}
 MESH_CG_CAP = 4
 MESH_RANK_TIMEOUT_S = 400.0
+# phase 18: prediction at the main path's full width.  The CG tolerance of
+# Model.predict_log_density; bounds: test nlpd against the TPU run's and
+# metrics_fn's (section 2 of PERF.md: 0.01), the dense path's mean log
+# density (nats a point), the covariance's diagonal against the marginal
+# variance (of max kdiag), its symmetry (of its max) and CGLB's against
+# SGPR's (of its max: LB by two paths); ConditionalVariance at M 512
+PREDICT_CG_TOL = 1e-6
+PREDICT_TOL = {"nlpd": 0.01, "dense_nats": 1e-4, "diag": 1e-10,
+               "sym": 1e-12, "cglb_vs_sgpr": 1e-9}
+CV_M = 512
 
 
 class SmokeFailure(RuntimeError):
@@ -359,10 +389,11 @@ def ls_grad_bound(ni: int, nj: int, d: int, b: int, symmetric: bool = False):
                  (ni + nj) * d * 4 + b * (ni + nj) * 4 + d * 8)
 
 
-def kuf_bound(m: int, n: int, d: int):
-    """Kernel 3: writes Kuf and e in fp64 (16 bytes an entry) and reads Z
-    and X; about 3d + 6 fp64 operations an entry."""
-    return bound(m * n * (3 * d + 6), "fp64", (m + n) * d * 8 + m * n * 16)
+def kuf_bound(m: int, n: int, d: int, with_e: bool = True):
+    """Kernel 3: writes Kuf and e in fp64 (16 bytes an entry; 8 without e)
+    and reads Z and X; about 3d + 6 fp64 operations an entry."""
+    return bound(m * n * (3 * d + 6), "fp64",
+                 (m + n) * d * 8 + m * n * (16 if with_e else 8))
 
 
 def show(name: str, ms: float, bnd, extra: str = "") -> None:
@@ -1120,7 +1151,10 @@ def warm_steps(profile: bool = True) -> dict:
 # --------------------------------------------------------------------------
 
 
-def phase_anchor() -> None:
+def anchor_model(matvec: str = "auto", params=None):
+    """(Torch facade, a ``cglb`` Model at the parameters of the TPU run
+    runs/kin40k-2000-scipy4-r4 on the card (max_error 1e-3), the kin40k
+    stand-in).  ``params``: share another model's parameters."""
     from cglb_tpu_torch import config as _config
     from cglb_tpu_torch.backend import Model, Torch
     from cglb_tpu_torch.experiments.datasets import get_dataset
@@ -1133,17 +1167,28 @@ def phase_anchor() -> None:
     _config.set_default_float("fp64")
     _config.set_default_jitter("fp64")
     want = load_json(ANCHOR / "results.json")
-    saved = load_json(ANCHOR / "model.json")
     bundle = get_dataset("Wilson_kin40k", split=0)
     require(bundle.synthetic and want["data"] == "synthetic",
             "anchor run and data must both be the synthetic stand-in")
-    backend = Torch(device="cuda")
+    backend = Torch(device="cuda", matvec=matvec)
     dev = backend.device
-    params = SGPRParams(Matern32(D, device=dev), saved[".inducing_Z"],
-                        device=dev)
-    assign_parameters(params, saved)
+    if params is None:
+        saved = load_json(ANCHOR / "model.json")
+        params = SGPRParams(Matern32(D, device=dev), saved[".inducing_Z"],
+                            device=dev)
+        assign_parameters(params, saved)
     X, Y = (torch.as_tensor(a, device=dev) for a in bundle.train)
-    model = Model("cglb", params, (X, Y), CGLBConfig(max_error=1e-3))
+    model = Model("cglb", params, (X, Y), CGLBConfig(max_error=1e-3),
+                  matvec=matvec)
+    return backend, model, bundle
+
+
+def phase_anchor() -> dict:
+    """Phase 4; returns the port's metrics there."""
+    from cglb_tpu_torch.utils.serialization import load_json
+
+    want = load_json(ANCHOR / "results.json")
+    backend, model, bundle = anchor_model()
     got = backend.metrics_fn(model, bundle.to_tuple())()
     keys = ("elbo", "titsias_upper_bound", "cg_lower_bound", "test/rmse",
             "test/nlpd", "cg/steps")
@@ -1162,6 +1207,7 @@ def phase_anchor() -> None:
             <= 1e-2 * want["test/rmse"], "anchor test/rmse")
     require(abs(got["test/nlpd"] - want["test/nlpd"]) <= 0.01,
             "anchor test/nlpd")
+    return got
 
 
 # --------------------------------------------------------------------------
@@ -2533,6 +2579,312 @@ def phase_mesh(results: dict, card: str) -> None:
 
 
 # --------------------------------------------------------------------------
+# phase 18: prediction at the main path's full width
+# --------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _cg_solves():
+    """Record (steps, residual error, preconditioner dtype) of every
+    preconditioned CG solve inside the block (the prediction's fp32 solve,
+    and its fp64 one where the fp32 one failed)."""
+    from cglb_tpu_torch.ops import cg as _cg
+
+    real, solves = _cg.preconditioned_cg, []
+
+    def recorded(matvec, b, v0, precond, *args, **kwargs):
+        v, stats = real(matvec, b, v0, precond, *args, **kwargs)
+        solves.append((stats.steps, stats.residual_error,
+                       str(precond.A.dtype).replace("torch.", "")))
+        return v, stats
+
+    _cg.preconditioned_cg = recorded
+    try:
+        yield solves
+    finally:
+        _cg.preconditioned_cg = real
+
+
+def _predict_log_density(model, bundle) -> dict:
+    """Model.predict_log_density(test, cg_tolerance=1e-6): the values, its
+    CG solves, kernel launches (counts zeroed first), seconds, peak
+    allocated bytes."""
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _cg_solves() as solves:
+        lpd = model.predict_log_density(bundle.test,
+                                        cg_tolerance=PREDICT_CG_TOL)
+    torch.cuda.synchronize()
+    return {"lpd": lpd, "seconds": time.perf_counter() - t0,
+            "solves": solves, "launches": _read_counts(),
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def _full_cov(fn) -> dict:
+    """fn() -> (mean, [1, S, S] covariance) under no_grad, with its seconds
+    and peak allocated bytes."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        _, var = fn()
+    torch.cuda.synchronize()
+    return {"var": var, "seconds": time.perf_counter() - t0,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def _check_cov(tag: str, var, marginal, kvar: float, sigma_sq) -> dict:
+    """The [1, S, S] covariance: fp64, symmetric to PREDICT_TOL["sym"] of
+    its max, its diagonal the marginal variance to PREDICT_TOL["diag"] of
+    max kdiag (= the kernel variance), and var + sigma^2 I factors."""
+    n = N_TEST
+    require(var.shape == (1, n, n) and var.dtype == torch.float64,
+            f"{tag}: covariance of shape {tuple(var.shape)}, {var.dtype}")
+    cov = var[0]
+    vmax = float(cov.abs().max())
+    sym = float((cov - cov.T).abs().max()) / vmax
+    diag = float((torch.diagonal(cov) - marginal).abs().max()) / kvar
+    eye = torch.eye(n, dtype=cov.dtype, device=cov.device)
+    _, info = torch.linalg.cholesky_ex(cov + sigma_sq * eye)
+    del eye
+    factors = int(info) == 0
+    print(f"[predict] {tag} covariance [1, {n}, {n}]: symmetric to "
+          f"{sym:.3e} of its max (bound {PREDICT_TOL['sym']:g}), diagonal "
+          f"against the marginal variance {diag:.3e} of max kdiag (bound "
+          f"{PREDICT_TOL['diag']:g}), cholesky(var + sigma^2 I) "
+          f"{'succeeds' if factors else f'fails (info {int(info)})'}",
+          flush=True)
+    require(sym <= PREDICT_TOL["sym"], f"{tag}: covariance not symmetric")
+    require(diag <= PREDICT_TOL["diag"],
+            f"{tag}: covariance diagonal is not the marginal variance")
+    require(factors, f"{tag}: var + sigma^2 I is not positive definite")
+    return {"symmetric_rel": sym, "diagonal_rel": diag}
+
+
+def _check_kss(Xs, params, card: str) -> dict:
+    """Kernel 3 on K(Xs, Xs), all N_TEST test rows, without e: against
+    its plain version, the diagonal exactly the variance, repeats bitwise
+    equal; timed beside its bound (8 bytes an entry written)."""
+    from cglb_tpu_torch.ops import kuf as _kuf
+    from cglb_tpu_torch.ops.kernels import GAMMA
+
+    with torch.no_grad():
+        ls = params.kernel.lengthscales.value
+        var = params.kernel.variance.value
+        xg = (Xs * (math.sqrt(GAMMA["mat32"]) / ls)).contiguous()
+    (plain, _), plain_ms = once_ms(
+        lambda: _kuf.kuf_unit_plain(xg, xg, var, "mat32", with_e=False))
+    kss, none = _kuf.launch_kuf(xg, xg, var, "mat32", with_e=False)
+    err, abs_err = rel_err(kss, plain)
+    del plain
+    exact = torch.equal(torch.diagonal(kss), var.detach().expand(N_TEST))
+    same = torch.equal(kss, _kuf.launch_kuf(xg, xg, var, "mat32", False)[0])
+    symmetric = torch.equal(kss, kss.T)
+    del kss
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: _kuf.launch_kuf(xg, xg, var, "mat32", False), 10)
+    bound_ms, bound_by = kuf_bound(N_TEST, N_TEST, D, with_e=False)
+    print(f"[predict] kernel 3 on K(Xs, Xs) {N_TEST}x{N_TEST}, D {D}, "
+          f"without e ({card}): rel err {err:.3e} (bound {TOL['kuf']:g}); "
+          f"diagonal exactly var {exact}; repeats bitwise equal {same}; "
+          f"bitwise symmetric {symmetric}; plain {plain_ms:.2f} ms",
+          flush=True)
+    show(f"mat32 kuf K(Xs, Xs) {N_TEST}x{N_TEST} D {D} (no e: 8 B an entry "
+         "written)", ms, (bound_ms, bound_by))
+    require(none is None and err <= TOL["kuf"], "kernel 3 on K(Xs, Xs)")
+    require(exact, "kernel 3 on K(Xs, Xs): diagonal is not exactly var")
+    require(same, "kernel 3 on K(Xs, Xs) is not deterministic")
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None, d=D,
+                width=D, shape=[N_TEST, N_TEST], with_e=False,
+                bitwise_symmetric=symmetric)
+
+
+def _numpy_kernel(kernel):
+    """(kernel_diag, kernel_cross) in numpy for ``conditional_variance_
+    numpy``: the port's stationary kernel at its values, by the formula of
+    ``ops/kernels.py`` (scaled norms, the clamped expansion, Matern32's
+    sqrt(d2 + 1e-36)).  Plain numpy: the torch CPU ops cost some 50 ms a
+    column there against the card's threads."""
+    with torch.no_grad():
+        var = float(kernel.variance.value)
+        ls = kernel.lengthscales.value.cpu().numpy()
+
+    def diag(A):
+        return np.full(A.shape[0], var)
+
+    def cross(A, B):
+        As, Bs = A / ls, B / ls
+        d2 = np.maximum(np.sum(As * As, -1)[:, None]
+                        + np.sum(Bs * Bs, -1)[None, :] - 2.0 * (As @ Bs.T),
+                        0.0)
+        if kernel.family == "rbf":
+            return var * np.exp(-0.5 * d2)
+        s3r = math.sqrt(3.0) * np.sqrt(d2 + 1e-36)
+        return var * (1.0 + s3r) * np.exp(-s3r)
+
+    return diag, cross
+
+
+def _check_conditional_variance(X, kernel) -> dict:
+    """ConditionalVariance on the card against the numpy oracle on the
+    host (the same kernel in numpy), CV_M points, seed 0.  Where the picks
+    first differ, both candidates' conditional variances given the points
+    picked before are computed on the host: they must tie to 1e-12
+    relative."""
+    from cglb_tpu_torch.utils.inducing import (conditional_variance,
+                                               conditional_variance_numpy)
+
+    diag, cross = _numpy_kernel(kernel)
+    Xh = X.cpu().numpy()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        _, idx = conditional_variance(X, CV_M, kernel, seed=0)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, oidx = conditional_variance_numpy(Xh, CV_M, diag, cross, seed=0)
+    host_s = time.perf_counter() - t0
+    same = np.array_equal(idx, oidx)
+    print(f"[predict] conditional_variance on the card ({card_s:.2f} s) "
+          f"and conditional_variance_numpy on the host ({host_s:.2f} s), "
+          f"{N} rows, M {CV_M}, seed 0: the same indices {same}",
+          flush=True)
+    out = {"same_indices": same, "card_s": card_s, "host_s": host_s}
+    if not same:
+        k = int(np.flatnonzero(idx != oidx)[0])
+        S = Xh[idx[:k]]
+        cand = Xh[[idx[k], oidx[k]]]
+        kx = cross(S, cand)
+        Kss = cross(S, S) + 1e-12 * np.eye(k)
+        cv = (diag(cand) - np.sum(kx * np.linalg.solve(Kss, kx), 0)).tolist()
+        rel = abs(cv[0] - cv[1]) / max(abs(cv[0]), abs(cv[1]))
+        print(f"[predict] first difference at step {k}: card picks "
+              f"{idx[k]} (conditional variance {cv[0]!r}), host picks "
+              f"{oidx[k]} ({cv[1]!r}), relative gap {rel:.3e} (a tie "
+              "below 1e-12)", flush=True)
+        require(rel <= 1e-12, "conditional_variance: the card and the host "
+                f"pick differently at step {k} without a tie")
+        out.update(first_difference=k, tie_rel=rel)
+    return out
+
+
+def phase_predict(results: dict, card: str, anchor_nlpd: float) -> None:
+    """Prediction at kin40k's full width on kernels 1 and 3 (docstring,
+    phase 18); ``anchor_nlpd``: phase 4's metrics_fn test/nlpd (CG at
+    1e-3)."""
+    from cglb_tpu_torch.models import cglb as _cglb
+    from cglb_tpu_torch.models import sgpr as _sgpr
+    from cglb_tpu_torch.ops import matvec as _mv
+
+    t_phase = time.perf_counter()
+    _, model, bundle = anchor_model()
+    require(model.streaming, "phase 18: the model is not streaming")
+    got = _predict_log_density(model, bundle)
+    nlpd = -float(got["lpd"].mean())
+    steps, residual, precond = got["solves"][-1]
+    launches = got["launches"]
+    print(f"[predict] Model.predict_log_density(test, cg_tolerance "
+          f"{PREDICT_CG_TOL:g}), streaming ({card}): CG solves (steps, "
+          f"residual error, preconditioner) {got['solves']}: ended by the "
+          f"{precond} one, {steps} steps, residual {residual:.3e}; "
+          f"launches {launches}; {got['seconds']:.3f} s, peak "
+          f"{got['peak'] / 2**30:.2f} GiB; -mean(log density) {nlpd!r} "
+          f"(TPU run's test/nlpd {REFERENCE['test/nlpd']}, metrics_fn at "
+          f"1e-3 {anchor_nlpd!r})", flush=True)
+    require(got["lpd"].shape == (N_TEST,)
+            and bool(torch.isfinite(got["lpd"]).all()),
+            "predict_log_density: not [S] finite values")
+    require(residual <= PREDICT_CG_TOL,
+            "predict_log_density: CG ended above its tolerance")
+    require(launches["streaming_matvec"] > 0 and launches["kuf"] > 0,
+            "predict_log_density: kernel 1 or 3 was not launched")
+    require(launches["ls_grad"] == 0,
+            "predict_log_density launched kernel 2: it is not gradient-free")
+    require(abs(nlpd - REFERENCE["test/nlpd"]) <= PREDICT_TOL["nlpd"],
+            "predict_log_density: test nlpd off the TPU run's")
+    require(abs(nlpd - anchor_nlpd) <= PREDICT_TOL["nlpd"],
+            "predict_log_density: test nlpd off metrics_fn's")
+
+    # the dense plain path: K(X, X) + sigma^2 I materialized in fp64
+    _, dense, _ = anchor_model("dense", model.params)
+    dgot = _predict_log_density(dense, bundle)
+    dense_nlpd = -float(dgot["lpd"].mean())
+    gap = abs(nlpd - dense_nlpd)
+    worst = float((got["lpd"] - dgot["lpd"]).abs().max())
+    print(f"[predict] dense operator (fp64 K {N}x{N}): CG solves "
+          f"{dgot['solves']}; {dgot['seconds']:.3f} s, peak "
+          f"{dgot['peak'] / 2**30:.2f} GiB; -mean(log density) "
+          f"{dense_nlpd!r}: mean gap {gap:.3e} nats a point (bound "
+          f"{PREDICT_TOL['dense_nats']:g}), largest pointwise {worst:.3e}",
+          flush=True)
+    require(dgot["solves"][-1][1] <= PREDICT_CG_TOL,
+            "dense predict_log_density: CG ended above its tolerance")
+    require(gap <= PREDICT_TOL["dense_nats"],
+            "predict_log_density: kernel path and dense path disagree")
+    del dense, dgot
+    torch.cuda.empty_cache()
+
+    # full covariance at every test row, SGPR then CGLB on kernels 1 and 3
+    p, (X, Y) = model.params, model.data
+    Xs = torch.as_tensor(bundle.test[0], device=X.device)
+    with torch.no_grad():
+        kvar = float(p.kernel.variance.value)
+        sigma_sq = p.noise_variance.value
+        _, marginal = _sgpr.predict_f(p, X, Y, Xs)
+    sg = _full_cov(lambda: _sgpr.predict_f(p, X, Y, Xs, full_cov=True))
+    print(f"[predict] sgpr.predict_f(full_cov=True) {N_TEST} rows ({card}):"
+          f" {sg['seconds']:.3f} s, peak {sg['peak'] / 2**30:.2f} GiB",
+          flush=True)
+    sgpr_checks = _check_cov("sgpr", sg["var"], marginal[:, 0], kvar,
+                             sigma_sq)
+    operator = _mv.make_streaming_operator(p.kernel, X, sigma_sq)
+
+    def cglb_predict(full_cov: bool):
+        return _cglb.predict_f(
+            p, X, Y, _cglb.init_v0(N, 1, X.dtype, X.device), Xs,
+            model.run_cfg, full_cov=full_cov, matvec=operator,
+            cross_matvec=lambda v: _mv.kernel_cross_matvec(p.kernel, X, Xs,
+                                                           v))
+
+    cg = _full_cov(lambda: cglb_predict(True))
+    with torch.no_grad():
+        _, cglb_marginal = cglb_predict(False)
+    gap_cov = float((cg["var"] - sg["var"]).abs().max()) / float(
+        sg["var"].abs().max())
+    print(f"[predict] cglb.predict_f(full_cov=True), streaming operator and "
+          f"kernel_cross_matvec ({card}): {cg['seconds']:.3f} s, peak "
+          f"{cg['peak'] / 2**30:.2f} GiB; against SGPR's covariance "
+          f"{gap_cov:.3e} of its max (bound {PREDICT_TOL['cglb_vs_sgpr']:g})",
+          flush=True)
+    cglb_checks = _check_cov("cglb", cg["var"], cglb_marginal[:, 0], kvar,
+                             sigma_sq)
+    require(gap_cov <= PREDICT_TOL["cglb_vs_sgpr"],
+            "cglb and sgpr covariances disagree")
+    del sg["var"], cg["var"], marginal, cglb_marginal, operator
+    torch.cuda.empty_cache()
+
+    results["kuf_kss"] = _check_kss(Xs, p, card)
+    cv = _check_conditional_variance(X, p.kernel)
+    for name in _counters():
+        results[name]["launches_predict_run"] = launches[name]
+    results["_predict"] = {
+        "nlpd": nlpd, "dense_nlpd": dense_nlpd, "dense_gap": gap,
+        "dense_pointwise_max": worst, "metrics_fn_nlpd": anchor_nlpd,
+        "tpu_nlpd": REFERENCE["test/nlpd"], "cg_solves": got["solves"],
+        "seconds": got["seconds"], "peak_bytes": got["peak"],
+        "launches": launches,
+        "full_cov": {"sgpr_s": sg["seconds"], "sgpr_peak": sg["peak"],
+                     "cglb_s": cg["seconds"], "cglb_peak": cg["peak"],
+                     "cglb_vs_sgpr": gap_cov, "sgpr": sgpr_checks,
+                     "cglb": cglb_checks},
+        "conditional_variance": cv,
+        "phase_s": time.perf_counter() - t_phase}
+    print(f"[predict] phase 18 took {results['_predict']['phase_s']:.1f} s "
+          f"({card})", flush=True)
+
+
+# --------------------------------------------------------------------------
 # --compare: kernel and step times of source trees, in turns
 # --------------------------------------------------------------------------
 
@@ -2647,7 +2999,7 @@ def main() -> int:
     for name in _counters():
         kernels[name]["launches_per_step"] = steps[
             f"launches per step, {name}"]
-    phase_anchor()
+    anchor = phase_anchor()
     phase_scipy4(kernels, card)
     phase_variants()
     phase_scipy_tol()
@@ -2663,18 +3015,21 @@ def main() -> int:
     phase_wide_cli(kernels, card)
     phase_sweep(card)
     phase_mesh(kernels, card)
-    for name in _counters():  # over the five main paths
+    phase_predict(kernels, card, anchor["test/nlpd"])
+    for name in _counters():  # over the six main paths
         kernels[name]["launches"] = (
             kernels[name]["launches_adam_cli"]
             + kernels[name]["launches_scipy4_run"]
             + kernels[name]["launches_exactgp_run"]
             + kernels[name]["launches_houseelectric_run"]
-            + kernels[name]["launches_mesh_run"])
+            + kernels[name]["launches_mesh_run"]
+            + kernels[name]["launches_predict_run"])
 
-    # kernel 3 is one kernel at every width: each of its rows (by D) carries
-    # its launches over the main paths, the D 40 CLI run's included
+    # kernel 3 is one kernel at every width: each of its rows (by D, and
+    # on phase 18's K(Xs, Xs)) carries its launches over the main paths,
+    # the D 40 CLI run's included
     kuf_rows = ["kuf"] + [f"kuf_d{d}" for d in sorted(
-        (11,) + KUF_DS + WIDE_DS)]
+        (11,) + KUF_DS + WIDE_DS)] + ["kuf_kss"]
     kernels["kuf"].update(d=D, width=D, shape=[M, N])
     kuf_launches = (kernels["kuf"]["launches"]
                     + kernels["kuf_d40"]["launches_wide_run"])
@@ -2697,7 +3052,8 @@ def main() -> int:
          **kernels[name]} for name, (src, rep) in sources.items()],
         "scipy4_run": kernels["_scipy4"], "exactgp_run": kernels["_exactgp"],
         "houseelectric_run": kernels["_houseelectric"],
-        "wide_run": kernels["_wide"], "mesh_run": kernels["_mesh"]}
+        "wide_run": kernels["_wide"], "mesh_run": kernels["_mesh"],
+        "predict_run": kernels["_predict"]}
     print(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s "
           f"({card})", flush=True)
     print(json.dumps(line))

@@ -3,13 +3,13 @@ small shapes, including the padded widths (D > 8, B not a power of two),
 the wide kernels above 32 input dimensions (both paths, slabs, groups and
 data far from the origin),
 rectangular matvecs and the symmetric path (one prepared point set),
-kernel 3 at D 2-100 on and off its tiles, with e and without, and at
-coincident points (exactly var),
+kernel 3 at D 2-100 on and off its tiles, with e and without, at
+coincident points (exactly var) and on a square K(Xs, Xs),
 bitwise-equal repeat launches, kernel 1's gradient with respect to its
 vector, the sharded loss over NCCL at world size 1, one evaluation of the
-scipy bridge against the CPU, short CLI runs
-that must launch all three, the grouped launches above 8 rows, and the
-iterative exact GP with the L-BFGS optimizers.
+scipy bridge and of Model.predict_log_density against the CPU, short CLI
+runs that must launch all three, the grouped launches above 8 rows, and
+the iterative exact GP with the L-BFGS optimizers.
 
 Marked ``cuda``; skipped without a card.  This file imports neither jax nor
 cglb_tpu, so it runs where they are absent:
@@ -189,6 +189,24 @@ def test_kuf_kernel_coincident_points_give_var_exactly(dev, dtype, d):
         kuf, e = tkuf.launch_kuf(zg, xg, var, family)
         assert torch.equal(kuf[rows, rows + 130], var.expand(70))
         assert torch.equal(e[rows, rows + 130], torch.ones_like(e[0, :70]))
+
+
+@pytest.mark.parametrize("family", ["mat32", "rbf"])
+@pytest.mark.parametrize("n,d", [(700, 8), (333, 3), (129, 11)])
+def test_kuf_kernel_on_square_kss_matches_plain(dev, family, n, d):
+    """Kernel 3 on K(Xs, Xs) as the full-covariance prediction calls it
+    (one point set on both sides, no e): its plain version to 1e-12, the
+    diagonal exactly var, symmetric and repeats bitwise equal."""
+    rng = np.random.default_rng(n)
+    xg = torch.tensor(rng.normal(size=(n, d)), device=dev) * math.sqrt(
+        tk.GAMMA[family])
+    var = torch.tensor(1.3, device=dev, dtype=torch.float64)
+    kss, none = tkuf.launch_kuf(xg, xg, var, family, with_e=False)
+    plain, _ = tkuf.kuf_unit_plain(xg, xg, var, family, with_e=False)
+    assert none is None and _rel(kss, plain) < 1e-12
+    assert torch.equal(torch.diagonal(kss), var.expand(n))
+    assert torch.equal(kss, kss.T)
+    assert torch.equal(tkuf.launch_kuf(xg, xg, var, family, False)[0], kss)
 
 
 # Above 32 input dimensions: the wide kernels (csrc/matvec_wide.cuh) on the
@@ -391,6 +409,41 @@ def test_matvec_gradient_wrt_vector_matches_plain(dev, family, n, d, b):
     with torch.no_grad():
         want = g @ kern.K(X).T
     assert _rel(dp, want) < 3e-6
+
+
+@pytest.mark.parametrize("kind", ["cglb", "sgpr"])
+def test_predict_log_density_on_the_card_matches_cpu(dev, kind):
+    """Model.predict_log_density on the card (kernel 3 for Kuf, Kus; the
+    dense operator below the streaming threshold; CG at 1e-6 with the fp64
+    preconditioner) against the CPU's plain versions, within 1e-9 of the
+    scale, and kernel 3 launched."""
+    from cglb_tpu_torch.backend import Model
+    from cglb_tpu_torch.models import cglb as tc
+    from cglb_tpu_torch.models import sgpr as ts
+
+    rng = np.random.default_rng(8)
+    X = rng.normal(size=(900, 4))
+    Y = np.sin(X[:, :1]) + 0.1 * rng.normal(size=(900, 1))
+    Xs = rng.normal(size=(300, 4))
+    Ys = np.sin(Xs[:, :1]) + 0.1 * rng.normal(size=(300, 1))
+    out = []
+    for device in ("cpu", dev):
+        kern = tk.make_kernel("Matern32", 4, variance=1.2, lengthscales=0.9,
+                              dtype=torch.float64, device=device)
+        params = ts.SGPRParams(kern, X[:40], noise_variance=0.2,
+                               dtype=torch.float64, device=device)
+        cfg = (tc.CGLBConfig(precond_dtype="float64") if kind == "cglb"
+               else None)
+        model = Model(kind, params, (torch.tensor(X, device=device),
+                                     torch.tensor(Y, device=device)), cfg)
+        before = tkuf.launch_kuf.launches
+        got = model.predict_log_density((Xs, Ys))
+        assert got.device.type == torch.device(device).type
+        assert got.shape == (300,) and not got.requires_grad
+        out.append((got.cpu(), tkuf.launch_kuf.launches - before))
+    (cpu, cpu_launches), (card, card_launches) = out
+    assert cpu_launches == 0 and card_launches > 0
+    assert float((card - cpu).abs().max()) <= 1e-9 * float(cpu.abs().max())
 
 
 def test_scipy_feval_on_the_card_matches_cpu(dev):

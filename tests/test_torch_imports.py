@@ -57,6 +57,63 @@ def test_port_runs_with_jax_click_optax_blocked(tmp_path):
     assert "lml" in res and "elbo" not in res  # the second run's
 
 
+_PREDICT_BLOCKED = """
+import sys
+for name in ("jax", "click", "optax", "cglb_tpu"):
+    sys.modules[name] = None
+import numpy as np
+import torch
+from cglb_tpu_torch import configs
+from cglb_tpu_torch.backend import Torch
+from cglb_tpu_torch.experiments.datasets import get_dataset
+from cglb_tpu_torch.models.cglb import (cglb_predict_log_density, init_v0,
+                                        predict_f)
+from cglb_tpu_torch.models.sgpr import sgpr_predict_log_density
+from cglb_tpu_torch.utils.inducing import conditional_variance_numpy
+from cglb_tpu_torch.utils.logging import StopWatch
+from cglb_tpu_torch.utils.native import native_available
+
+b = get_dataset("synth_150x2", dtype=np.float64)
+model = Torch(device="cpu").create_model(configs.CGLBConfig(
+    configs.Matern32Config(), configs.InducingVariableConfig(8)), b.train)
+X, Y = model.data
+Xs, Ys = (torch.tensor(a) for a in b.test)
+lpd = model.predict_log_density(b.test)
+assert lpd.shape == (Xs.shape[0],) and torch.isfinite(lpd).all()
+p = model.params
+for got in (sgpr_predict_log_density(p, X, Y, Xs, Ys),
+            cglb_predict_log_density(p, X, Y, init_v0(X.shape[0]), Xs, Ys)):
+    assert got.shape == lpd.shape and got.requires_grad
+mean, var = predict_f(p, X, Y, init_v0(X.shape[0]), Xs, full_cov=True)
+assert var.shape == (1, Xs.shape[0], Xs.shape[0])
+Z, idx = conditional_variance_numpy(
+    b.train[0], 5, lambda A: np.ones(len(A)),
+    lambda A, B: np.exp(-0.5 * ((A[:, None] - B[None]) ** 2).sum(-1)))
+assert Z.shape == (5, 2) and len(set(idx)) == 5
+watch = StopWatch()
+watch.start()
+assert watch.stop() >= 0.0 and not watch.started()
+assert callable(native_available)
+assert not any(m == "jax" or m.startswith(("jax.", "cglb_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+"""
+
+
+def test_prediction_names_run_with_jax_blocked(tmp_path):
+    """The names this slice added (``Model.predict_log_density``, both
+    ``*_predict_log_density``, ``predict_f(full_cov=True)``,
+    ``conditional_variance_numpy``, ``StopWatch.stop``,
+    ``native_available``) import and run on the CPU with jax, click, optax
+    and cglb_tpu unimportable (``native_available`` is not called: it
+    would build the native library)."""
+    env = dict(os.environ, CGLB_DATA_DIR=str(tmp_path / "no_data_here"),
+               PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _PREDICT_BLOCKED],
+                          cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
 def test_no_jax_import_in_port_sources():
     """No jax, click, optax, cglb_tpu or pandas anywhere in the port or
     chip_smoke.py; matplotlib only inside experiments/plotting.py (the

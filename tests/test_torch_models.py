@@ -274,15 +274,17 @@ def test_predict_matches_jax(rng, family):
         p, jnp.asarray(X), jnp.asarray(Y), jc.init_v0(200), jnp.asarray(Xs),
         jcfg, cg_tolerance=1e-24))(jp)
     tcfg = tc.CGLBConfig(precond_dtype="float64", max_cg_iters=1000)
-    tm, tv = tc.predict_f(tp, torch.tensor(X), torch.tensor(Y),
-                          tc.init_v0(200), torch.tensor(Xs), tcfg,
-                          cg_tolerance=1e-24)
+    with torch.no_grad():  # the predictions carry gradients, as JAX's do
+        tm, tv = tc.predict_f(tp, torch.tensor(X), torch.tensor(Y),
+                              tc.init_v0(200), torch.tensor(Xs), tcfg,
+                              cg_tolerance=1e-24)
     np.testing.assert_allclose(tm.numpy(), np.asarray(jm), rtol=1e-9,
                                atol=1e-11)
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-9,
                                atol=1e-11)
-    sm, sv = ts.predict_f(tp, torch.tensor(X), torch.tensor(Y),
-                          torch.tensor(Xs))
+    with torch.no_grad():
+        sm, sv = ts.predict_f(tp, torch.tensor(X), torch.tensor(Y),
+                              torch.tensor(Xs))
     jsm, jsv = jax.jit(lambda p: js.predict_f(
         p, jnp.asarray(X), jnp.asarray(Y), jnp.asarray(Xs)))(jp)
     np.testing.assert_allclose(sm.numpy(), np.asarray(jsm), rtol=1e-9,

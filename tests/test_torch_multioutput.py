@@ -68,9 +68,10 @@ def test_multioutput_predict_matches_gpr(rng):
     Xt, Yt = torch.tensor(X), torch.tensor(Y)
     Xs = torch.tensor(np.random.default_rng(3).normal(size=(7, 2)))
     cfg = tc.CGLBConfig(max_cg_iters=400, precond_dtype="float64")
-    mean_c, var_c = tc.predict_f(tp, Xt, Yt, tc.init_v0(48, 3, torch.float64),
-                                 Xs, cfg, cg_tolerance=1e-12)
     with torch.no_grad():
+        mean_c, var_c = tc.predict_f(tp, Xt, Yt,
+                                     tc.init_v0(48, 3, torch.float64), Xs,
+                                     cfg, cg_tolerance=1e-12)
         mean_g, var_g = tg.predict_f(tgp, Xt, Yt, Xs)
     assert mean_c.shape == (7, 3) and var_c.shape == (7, 3)
     assert var_g.shape == (7, 3)

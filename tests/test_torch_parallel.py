@@ -242,7 +242,8 @@ def _rank_main(outdir: str) -> None:
 def _backend_cases(mesh, out: dict, outdir: Path) -> None:
     """The Torch facade at synth_300x2, M 12, with the mesh and without:
     the tolerance-level loss at 1.0 and 1e-2 from the fresh model's zero
-    warm start (fp64 preconditioner), the loss, predictions, then one Adam
+    warm start and the test log density (CG at 1e-6; both with the fp64
+    preconditioner), the loss, predictions, then one Adam
     step and 4 scipy iterations; each model's raw parameters.  Then every
     rank saves the meshed model and its checkpoint into a directory of its
     own (rank 0 alone writes), and reads rank 0's checkpoint back."""
@@ -263,6 +264,8 @@ def _backend_cases(mesh, out: dict, outdir: Path) -> None:
             out[f"backend_{tag}__tol"] = np.array([
                 float(fn(model.params, model.v0, me)[0])
                 for me in (1.0, 1e-2)])
+        out[f"backend_{tag}__lpd"] = model.predict_log_density(
+            bundle.test).numpy()
         model.run_cfg = run_cfg
         out[f"backend_{tag}__loss0"] = np.array(model.loss_value())
         mean, var = model.predict_f(bundle.test[0])
@@ -512,6 +515,18 @@ def test_backend_mesh_matches_one_process(ranks):
                                r0["backend_one__adam"], rtol=1e-5)
     np.testing.assert_allclose(r0["backend_mesh__scipy"],
                                r0["backend_one__scipy"], rtol=1e-5)
+
+
+def test_backend_predict_log_density_mesh_matches_one_process(ranks):
+    """Model.predict_log_density (CG at 1e-6 under the mesh, fp64
+    preconditioner) on both ranks equals the one-process value to 1e-9 of
+    its scale, [S] test rows."""
+    _, (r0, r1) = ranks
+    want = r0["backend_one__lpd"]
+    assert want.shape == (99,) and np.all(np.isfinite(want))
+    for r in (r0, r1):
+        np.testing.assert_allclose(r["backend_mesh__lpd"], want, rtol=0,
+                                   atol=1e-9 * np.max(np.abs(want)))
 
 
 def test_backend_tolerance_levels_match_jax(ranks):

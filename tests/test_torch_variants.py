@@ -174,11 +174,12 @@ def test_predict_with_external_v_reuses_v0(rng, mode):
     v = 0.05 * rng.normal(size=(1, 120)) if joint else np.zeros((1, 120))
     settings = dict(joint_optimization=joint, vzero=not joint,
                     precond_dtype="float64")
-    cache = tc.predict_prepare(tp, torch.tensor(X), torch.tensor(Y),
-                               torch.tensor(v), tc.CGLBConfig(**settings))
+    with torch.no_grad():  # the predictions carry gradients, as JAX's do
+        cache = tc.predict_prepare(tp, torch.tensor(X), torch.tensor(Y),
+                                   torch.tensor(v), tc.CGLBConfig(**settings))
+        tm, tv = tc.predict_from_cache(tp, cache, torch.tensor(X),
+                                       torch.tensor(Xs))
     np.testing.assert_array_equal(cache.v.numpy(), v)
-    tm, tv = tc.predict_from_cache(tp, cache, torch.tensor(X),
-                                   torch.tensor(Xs))
     jm, jv = jax.jit(lambda p: jc.predict_f(
         p, jnp.asarray(X), jnp.asarray(Y), jnp.asarray(v), jnp.asarray(Xs),
         jc.CGLBConfig(common_dtype="float64", **settings)))(jp)
