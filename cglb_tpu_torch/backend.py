@@ -54,6 +54,7 @@ from .utils import metrics as _metrics
 from .utils import serialization as _ser
 from .utils import training as _training
 from .utils.logging import Logger
+from .utils.profiling import annotate
 
 __all__ = ["Model", "Torch", "make_mesh", "resolve_device"]
 
@@ -290,18 +291,19 @@ class Model:
                 return _sgpr.predict_from_cache(p, cache, xs)
         else:
             mesh = self.mesh
-            matvec = None
-            if mesh is not None:
-                matvec = _sharded.sharded_operator(
-                    mesh, p.kernel, X, p.noise_variance.value,
-                    self._operator_mode())
-            elif self.streaming:
-                matvec = _mv.make_streaming_operator(p.kernel, X,
-                                                     p.noise_variance.value)
-            v0 = p.v0.value if self.joint else self.v0
-            cache = _cglb.predict_prepare(p, X, Y, v0, self.run_cfg,
-                                          cg_tolerance=cg_tolerance,
-                                          matvec=matvec, mesh=mesh)
+            with annotate("cglb.predict.prepare"):
+                matvec = None
+                if mesh is not None:
+                    matvec = _sharded.sharded_operator(
+                        mesh, p.kernel, X, p.noise_variance.value,
+                        self._operator_mode())
+                elif self.streaming:
+                    matvec = _mv.make_streaming_operator(
+                        p.kernel, X, p.noise_variance.value)
+                v0 = p.v0.value if self.joint else self.v0
+                cache = _cglb.predict_prepare(p, X, Y, v0, self.run_cfg,
+                                              cg_tolerance=cg_tolerance,
+                                              matvec=matvec, mesh=mesh)
 
             def batch(xs):
                 cross = None
@@ -315,7 +317,8 @@ class Model:
                                                 cross_matvec=cross)
         means, vars_ = [], []
         for start in range(0, Xnew.shape[0], batch_size):
-            m, v = batch(Xnew[start:start + batch_size])
+            with annotate("cglb.predict.project"):
+                m, v = batch(Xnew[start:start + batch_size])
             means.append(m)
             vars_.append(v)
         return torch.cat(means, 0), torch.cat(vars_, 0)
@@ -328,11 +331,13 @@ class Model:
         through their own prediction (cglb_tpu/backend.py:470-475), by
         :meth:`predict_f_batched` where the JAX package predicts in one
         batch."""
-        X = self.data[0]
-        Xs, Ys = (torch.as_tensor(a, dtype=X.dtype, device=X.device)
-                  for a in data)
-        f_mean, f_var = self.predict_f_batched(Xs, cg_tolerance=cg_tolerance)
-        return _pld(f_mean, f_var, self.params.noise_variance.value, Ys)
+        with annotate("cglb.predict"):
+            X = self.data[0]
+            Xs, Ys = (torch.as_tensor(a, dtype=X.dtype, device=X.device)
+                      for a in data)
+            f_mean, f_var = self.predict_f_batched(
+                Xs, cg_tolerance=cg_tolerance)
+            return _pld(f_mean, f_var, self.params.noise_variance.value, Ys)
 
     def parameter_dict(self) -> Dict[str, np.ndarray]:
         return self.params.parameter_dict()

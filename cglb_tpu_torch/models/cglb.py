@@ -46,6 +46,7 @@ from ..ops import cg as _cg
 from ..ops import chol as _chol
 from ..ops import preconditioners as _pc
 from ..ops.operators import make_dense_operator
+from ..utils.profiling import annotate
 from .gaussian import mean_apply, predict_log_density
 from .sgpr import (CommonTerms, SGPRParams, _cache_solves, _predict_var,
                    common_terms, kuf_weighted, n2m_log_trace)
@@ -121,17 +122,18 @@ def _make_precond(ct: CommonTerms, sigma_sq, cfg: CGLBConfig,
     (``consistent_ct``) and both are in that dtype (a chunked build gives A
     in the preconditioner's fp32 beside an fp64 LB)."""
     pd = _config.torch_dtype(cfg.precond_dtype)
-    if consistent_ct and ct.A.dtype == pd and ct.LB.dtype == pd:
-        return _pc.NystromPreconditioner(A=ct.A, LB=ct.LB, sigma_sq=sigma_sq,
-                                         mesh=mesh)
-    A = ct.A.to(pd)
-    eye = torch.eye(A.shape[0], dtype=pd, device=A.device)
-    AAT = A @ A.T
-    if mesh is not None:
-        AAT = mesh.reduce(AAT)
-    LB, Ci = _chol.chol_inv(AAT + eye)
-    return _pc.NystromPreconditioner(A=A, LB=LB, sigma_sq=sigma_sq, Ci=Ci,
-                                     mesh=mesh)
+    with annotate("cglb.precond"):
+        if consistent_ct and ct.A.dtype == pd and ct.LB.dtype == pd:
+            return _pc.NystromPreconditioner(A=ct.A, LB=ct.LB,
+                                             sigma_sq=sigma_sq, mesh=mesh)
+        A = ct.A.to(pd)
+        eye = torch.eye(A.shape[0], dtype=pd, device=A.device)
+        AAT = A @ A.T
+        if mesh is not None:
+            AAT = mesh.reduce(AAT)
+        LB, Ci = _chol.chol_inv(AAT + eye)
+        return _pc.NystromPreconditioner(A=A, LB=LB, sigma_sq=sigma_sq,
+                                         Ci=Ci, mesh=mesh)
 
 
 def _same_steps(mesh, stats: _cg.CGStats) -> None:
@@ -182,8 +184,9 @@ def _common_terms(params: SGPRParams, X, cfg: CGLBConfig, jitter,
     whose trace needs A in fp64."""
     a_dtype = (None if cfg.logdet_variant == "n2m"
                else _config.torch_dtype(cfg.precond_dtype))
-    return common_terms(params, X, jitter, chunk_size=chunk_size,
-                        remat=remat, a_dtype=a_dtype, mesh=mesh)
+    with annotate("cglb.common"):
+        return common_terms(params, X, jitter, chunk_size=chunk_size,
+                            remat=remat, a_dtype=a_dtype, mesh=mesh)
 
 
 def bound(params: SGPRParams, X, Y, v0, cfg: CGLBConfig = CGLBConfig(),

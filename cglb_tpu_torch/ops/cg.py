@@ -8,7 +8,9 @@ Counterpart of ``cglb_tpu/ops/cg.py:59-182`` with the same semantics:
 - the residual is recomputed from scratch every ``restart_iters`` steps;
 - the stop rule is 0.5 * sum(rz) <= max_error (or the iteration cap).
 
-The stop test is read back to the host once per iteration.
+The stop test is read back to the host once per iteration, in a span
+``cglb.cg.read`` (the solve is ``cglb.cg``): a solve of k steps reads k + 2
+times.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Callable, NamedTuple, Tuple
 
 import torch
 
+from ..utils.profiling import annotate
 from . import preconditioners as _pc
 
 __all__ = ["CGStats", "CGCarry", "preconditioned_cg", "cg_init",
@@ -47,8 +50,10 @@ class CGCarry(NamedTuple):
     err_cap: float
 
 
-def _total_err(rz: torch.Tensor) -> torch.Tensor:
-    return 0.5 * torch.sum(rz)
+def _read_err(rz: torch.Tensor) -> float:
+    """The stop test's 0.5 * sum(rz), read back to the host."""
+    with annotate("cglb.cg.read"):
+        return float(0.5 * torch.sum(rz))
 
 
 @torch.no_grad()
@@ -67,7 +72,7 @@ def cg_init(matvec: MatVec, b: torch.Tensor, v0: torch.Tensor,
     r0 = torch.where(col, b, r0)
     z0 = torch.where(col, zb, z0)
     rz0 = torch.where(use_cold, rzb, rz0)
-    err_cap = 1e6 * (float(_total_err(rz0)) + 1.0)
+    err_cap = 1e6 * (_read_err(rz0) + 1.0)
     return CGCarry(state=_CGState(i=0, v=v0, r=r0, p=z0, rz=rz0),
                    err_cap=err_cap)
 
@@ -79,7 +84,7 @@ def cg_advance(matvec: MatVec, b: torch.Tensor, precond, carry: CGCarry,
     """Iterate from ``carry`` until err <= max_error, i >= max_iters (an
     absolute cap, counted from cg_init), or divergence."""
     s = carry.state
-    err = float(_total_err(s.rz))
+    err = _read_err(s.rz)
     while (err > max_error and s.i < max_iters
            and math.isfinite(err) and err < carry.err_cap):
         Ap = matvec(s.p)
@@ -90,7 +95,7 @@ def cg_advance(matvec: MatVec, b: torch.Tensor, precond, carry: CGCarry,
         z, new_rz = _pc.mat_vec(precond, r)
         p = z if restart else z + (new_rz / s.rz)[:, None] * s.p
         s = _CGState(i=s.i + 1, v=v, r=r, p=p, rz=new_rz)
-        err = float(_total_err(s.rz))
+        err = _read_err(s.rz)
     return (CGCarry(state=s, err_cap=carry.err_cap),
             CGStats(steps=s.i, residual_error=err))
 
@@ -101,7 +106,8 @@ def preconditioned_cg(matvec: MatVec, b: torch.Tensor, v0: torch.Tensor,
                       ) -> Tuple[torch.Tensor, CGStats]:
     """Solve v K = b (row vectors [B, N], K symmetric) approximately.
     The result carries no gradient."""
-    carry = cg_init(matvec, b, v0, precond)
-    carry, stats = cg_advance(matvec, b, precond, carry, max_error,
-                              max_iters, restart_iters)
+    with annotate("cglb.cg"):
+        carry = cg_init(matvec, b, v0, precond)
+        carry, stats = cg_advance(matvec, b, precond, carry, max_error,
+                                  max_iters, restart_iters)
     return carry.state.v, stats

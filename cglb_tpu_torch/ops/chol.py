@@ -16,6 +16,8 @@ from typing import Tuple
 
 import torch
 
+from ..utils.profiling import annotate
+
 __all__ = ["cholesky", "chol_retry", "chol_inv", "chol_inv_retry"]
 
 
@@ -31,10 +33,13 @@ def _eye_like(P: torch.Tensor) -> torch.Tensor:
 
 def chol_retry(P: torch.Tensor, jitter: float) -> torch.Tensor:
     """chol(P + jitter I), retried with 1000x jitter if not finite
-    (clustered inducing points mid-optimization).  Reads one flag back."""
+    (clustered inducing points mid-optimization).  Reads one flag back, in
+    the span ``cglb.chol.read``."""
     eye = _eye_like(P)
     L = cholesky(P + jitter * eye)
-    if not bool(torch.isfinite(torch.diagonal(L)).all()):
+    with annotate("cglb.chol.read"):
+        ok = bool(torch.isfinite(torch.diagonal(L)).all())
+    if not ok:
         L = cholesky(P + (1000.0 * jitter) * eye)
     return L
 

@@ -1,15 +1,15 @@
-"""Profiling hooks: torch.profiler traces, named regions and phase timers.
+"""Profiling hooks: torch.profiler traces and named spans.
 
 The counterpart of ``cglb_tpu/utils/profiling.py`` in PyTorch's idiom:
 
 - :func:`trace` records a ``torch.profiler`` window, with the CUDA activity
   when the device is a card, and writes it as a Chrome trace (open it in
   ``chrome://tracing`` or Perfetto) into a directory;
-- :func:`annotate` names a region inside such a window
-  (``torch.profiler.record_function``);
-- :class:`PhaseTimer` sums host wall time per phase, and synchronizes the
-  card at the end of a phase so that its time is that of the device work,
-  not of its enqueueing.
+- :func:`annotate` names a span inside such a window
+  (``torch.profiler.record_function``), and costs nothing without one.
+
+The program's spans are named ``cglb.*`` (README.md, "Tracing"); they
+nest, so that each step's or request's spans sit inside its top span.
 """
 
 from __future__ import annotations
@@ -18,11 +18,13 @@ import contextlib
 import os
 import time
 from pathlib import Path
-from typing import Dict, Optional, Union
+from typing import Optional, Union
 
 import torch
 
-__all__ = ["trace", "annotate", "PhaseTimer"]
+__all__ = ["trace", "annotate"]
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -50,42 +52,10 @@ def trace(logdir, device: Optional[Union[str, torch.device]] = None):
 
 
 def annotate(name: str):
-    """A named region inside a trace."""
+    """A named span inside a trace (``torch.profiler.record_function``).
+    With no profiler running it is one shared null context: entering a
+    ``record_function`` costs several microseconds even then, and the spans
+    sit in loops that read the card back every iteration."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
     return torch.profiler.record_function(name)
-
-
-def _synchronize(sync) -> None:
-    """Wait for the card that ``sync`` (a tensor or a device) lives on; a
-    CPU tensor or device needs no wait."""
-    device = sync.device if isinstance(sync, torch.Tensor) else torch.device(
-        sync)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-class PhaseTimer:
-    """Cumulative wall-clock per phase; with ``sync`` the device is
-    synchronized at the phase's end, so the time is that of its work."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str, sync=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync is not None:
-                _synchronize(sync)
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def report(self) -> str:
-        lines = ["phase                     total_s   calls   mean_ms"]
-        for name in sorted(self.totals, key=self.totals.get, reverse=True):
-            t, c = self.totals[name], self.counts[name]
-            lines.append(f"{name:24s} {t:8.3f}  {c:6d}  {t / c * 1e3:8.2f}")
-        return "\n".join(lines)

@@ -41,6 +41,7 @@ import torch
 
 from . import flatten as _fl
 from .logging import Logger
+from .profiling import annotate
 
 __all__ = ["OptimizeResult", "scipy_minimize", "scipy_tol_minimize",
            "adam_minimize", "lbfgs_minimize", "native_lbfgs_minimize",
@@ -329,10 +330,12 @@ def adam_minimize(loss_fn: LossFn, params: torch.nn.Module, state,
         logger.timer.start()
     loss = torch.tensor(np.inf)
     for i in range(num_steps):
-        opt.zero_grad(set_to_none=True)
-        loss, state = loss_fn(params, state, *loss_args)
-        loss.backward()
-        opt.step()
+        with annotate("cglb.step"):
+            opt.zero_grad(set_to_none=True)
+            loss, state = loss_fn(params, state, *loss_args)
+            with annotate("cglb.backward"):
+                loss.backward()
+            opt.step()
         if logger is not None:
             if feval_stats_fn is not None:
                 logger.log_for_feval(**feval_stats_fn(state))

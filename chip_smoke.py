@@ -1058,10 +1058,12 @@ def phase_main_path(results: dict) -> None:
 def _device_work(ev, regions) -> bool:
     """A kernel, memcpy or memset on the card: an event of the CUDA device
     that is not the GPU-side span of a user annotation (``annotate``'s
-    regions, whose span covers all the work inside them)."""
+    regions and the program's ``cglb.*`` spans, whose span covers all the
+    work inside them)."""
     if ev.device_type != torch.autograd.DeviceType.CUDA:
         return False
-    if getattr(ev, "is_user_annotation", False) or ev.key in regions:
+    if (getattr(ev, "is_user_annotation", False) or ev.key in regions
+            or ev.key.startswith("cglb.")):
         return False
     kind = str(getattr(ev, "activity_type", None) or "").lower()
     return not kind or any(k in kind for k in ("kernel", "memcpy", "memset"))

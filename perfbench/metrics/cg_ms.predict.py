@@ -1,0 +1,8 @@
+"""cg_ms.predict: perfbench/spans.py device ms per request launched in
+``cglb.cg``."""
+
+from perfbench.spans import span_ms
+
+
+def read(ctx):
+    return span_ms(ctx, "predict", "cglb.cg")

@@ -1,0 +1,8 @@
+"""common_ms.train: perfbench/spans.py device ms per step launched in
+``cglb.common``."""
+
+from perfbench.spans import span_ms
+
+
+def read(ctx):
+    return span_ms(ctx, "adam", "cglb.common")
