@@ -59,10 +59,6 @@ CHUNK_THRESHOLD_ELEMENTS = 1 << 28
 CHUNK_ELEMENTS = 1 << 26
 
 
-def _solve_lower(L, B):
-    return torch.linalg.solve_triangular(L, B, upper=False)
-
-
 class SGPRParams(ParamModule):
     """Kernel, inducing points, noise variance and constant mean."""
 
@@ -156,7 +152,7 @@ def _kuf_terms(params: SGPRParams, L, X, sigma_scale, W=None,
 
     def terms(xc, wc):
         kuf = kuf_of(Z, ls, var, xc, kern.family)
-        a = _solve_lower(L, kuf) / sigma_scale
+        a = _chol.solve_lower(L, kuf) / sigma_scale
         return (a.to(a_dtype) if with_a else None, a @ a.T,
                 None if wc is None else a @ wc)
 
@@ -204,7 +200,7 @@ def kuf_weighted(params: SGPRParams, L, X, W, sigma_scale,
         U = u if U is None else U + u
     if mesh is not None:
         U = mesh.reduce(U)
-    return _solve_lower(L, U) / sigma_scale
+    return _chol.solve_lower(L, U) / sigma_scale
 
 
 def common_terms(params: SGPRParams, X, jitter: float = None,
@@ -238,7 +234,7 @@ def elbo(params: SGPRParams, X, Y, jitter: float = None,
     _, AAT, Aerr = _kuf_terms(params, L, X, sigma, W=err, remat=True,
                               with_a=False, mesh=mesh)
     LB = _chol.cholesky(AAT + torch.eye(M, dtype=X.dtype, device=X.device))
-    c = _solve_lower(LB, Aerr) / sigma
+    c = _chol.solve_lower(LB, Aerr) / sigma
 
     bound = -0.5 * N * D * math.log(2.0 * math.pi)
     bound = bound - D * torch.sum(torch.log(torch.diagonal(LB)))
@@ -263,7 +259,7 @@ def n2m_log_trace(params: SGPRParams, ct: CommonTerms, X,
     sigma_sq = params.noise_variance.value
     if mesh is None:
         K = params.kernel.K(X)
-        C = _solve_lower(ct.LB, ct.A)
+        C = _chol.solve_lower(ct.LB, ct.A)
         trace_k = torch.trace(K)
         trace_ckc = torch.sum((C @ K) * C)
         trace_cc = torch.sum(C * C)
@@ -272,7 +268,7 @@ def n2m_log_trace(params: SGPRParams, ct: CommonTerms, X,
         kern = params.kernel
         Kc = k_columns(kern, X, c0, c1, mesh.enter(kern.lengthscales.value),
                        mesh.enter(kern.variance.value))
-        Cc = _solve_lower(mesh.enter(ct.LB), ct.A)
+        Cc = _chol.solve_lower(mesh.enter(ct.LB), ct.A)
         # all of C enters the rank's product C @ Kc
         C = mesh.enter(mesh.gather(Cc, N, 1))
         trace_k = mesh.reduce(torch.trace(Kc[c0:c1]))
@@ -300,7 +296,7 @@ def elbo_n2m(params: SGPRParams, X, Y, jitter: float = None,
     sigma = torch.sqrt(sigma_sq)
     Aerr = (ct.A @ err if mesh is None
             else mesh.reduce(ct.A @ mesh.shard(err, 0)))
-    c = _solve_lower(ct.LB, Aerr) / sigma
+    c = _chol.solve_lower(ct.LB, Aerr) / sigma
 
     bound = -0.5 * N * D * math.log(2.0 * math.pi)
     bound = bound - D * torch.sum(torch.log(torch.diagonal(ct.LB)))
@@ -333,7 +329,7 @@ def upper_bound(params: SGPRParams, X, Y, jitter: float = None,
     const = -0.5 * N * torch.log(2.0 * math.pi * sigma_sq)
     logdet = -torch.sum(torch.log(torch.diagonal(LB)))
     LC = _chol.cholesky(eye_m + AAT0 / corrected_noise)
-    v = _solve_lower(LC, A0err / corrected_noise)
+    v = _chol.solve_lower(LC, A0err / corrected_noise)
     quad = (-0.5 * torch.sum(torch.square(err)) / corrected_noise
             + 0.5 * torch.sum(torch.square(v)))
     return const + logdet + quad
@@ -357,15 +353,15 @@ def predict_prepare(params: SGPRParams, X, Y, jitter: float = None
     L = _kuu_chol(params, jitter)
     _, AAT, Aerr = _kuf_terms(params, L, X, sigma, W=err, with_a=False)
     LB = _chol.cholesky(AAT + torch.eye(M, dtype=X.dtype, device=X.device))
-    c = _solve_lower(LB, Aerr) / sigma
+    c = _chol.solve_lower(LB, Aerr) / sigma
     return SGPRPredictCache(c=c, L=L, LB=LB)
 
 
 def _cache_solves(params: SGPRParams, cache, Xnew):
     """tmp1 = L^-1 Kus, tmp2 = LB^-1 tmp1 (Kus from kernel 3)."""
     Kus = _kuf(params.kernel, params.inducing_Z.value, Xnew)  # [M, S]
-    tmp1 = _solve_lower(cache.L, Kus)
-    tmp2 = _solve_lower(cache.LB, tmp1)
+    tmp1 = _chol.solve_lower(cache.L, Kus)
+    tmp2 = _chol.solve_lower(cache.LB, tmp1)
     return tmp1, tmp2
 
 

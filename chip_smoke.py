@@ -142,7 +142,19 @@ Phases, each of which fails the run (non-zero exit) on error:
     1e-12, its diagonal exactly the variance, repeats bitwise equal, timed
     beside its bound (8 bytes an entry written); ConditionalVariance on the
     card against the numpy oracle on the host (26800 rows, M 512, seed 0):
-    the same indices, or a tie to 1e-12 where they first differ.
+    the same indices, or a tie to 1e-12 where they first differ;
+19. the lower solve with many columns (``ops/chol.py`` ``solve_lower``) on
+    the main path's L and Kuf (the kin40k model as the CLI builds it, fp64,
+    M 2048): at [2048, 26800] and at [2048, S] for S 13200, 8192, 6144,
+    4096, 1024 and 64, the blocked solve (``SOLVE_BLOCK`` rows a block, forced at every
+    width) and the builtin trsm (``library_ms``) timed forward and forward
+    plus backward, beside the bound M^2 K fp64 operations at the tensor
+    cores' 67 TFLOP/s (1.68 ms at the full width); the blocked result and
+    gradients against the builtin's to 1e-10 relative, and the entry point
+    blocked from ``SOLVE_MIN_WIDTH`` columns on; its counters over 3 Adam
+    steps (one blocked solve forward and one backward a step) and over
+    ``Model.predict_log_density`` requests of 64 to 13200 test rows (A's
+    solve, and the projections' two from ``SOLVE_MIN_WIDTH`` rows on).
 
 With ``--protocol-adam`` no phase runs: ``grids/protocol-adam.toml`` (the
 command of the TPU run runs/kin40k-2000-adam-r4, 2000 Adam steps) goes
@@ -206,6 +218,8 @@ TOL = {  # relative to max |plain|
 # H100 SXM data sheet, dense, at the 700 W limit: fp32 and fp64 outside the
 # tensor cores, and HBM3
 PEAK_FLOPS = {"fp32": 67e12, "fp64": 34e12}
+# fp64 on the tensor cores (DGEMM): the rate phase 19 holds the solve to
+PEAK_FP64_TENSOR = 67e12
 PEAK_BYTES = 3.35e12
 ANCHOR = ROOT / "runs" / "kin40k-2000-scipy4-r4"
 _HEAD = ["-t", "fp64", "-s", "0", "train"]
@@ -2886,6 +2900,115 @@ def phase_predict(results: dict, card: str, anchor_nlpd: float) -> None:
           f"({card})", flush=True)
 
 
+# phase 19: the widths of B at which the lower solve is timed; the solve's
+# results against the builtin's (relative to max |builtin|)
+SOLVE_WIDTHS = (N, N_TEST, 8192, 6144, 4096, 1024, 64)
+SOLVE_TOL = 1e-10
+
+
+def phase_solve(results: dict, card: str) -> None:
+    from cglb_tpu_torch.models import sgpr as _sgpr
+    from cglb_tpu_torch.ops import chol as _chol
+    from cglb_tpu_torch.ops.kuf import kuf as _kuf
+
+    model = _kin40k_model()
+    params, (X, _) = model.params, model.data
+    with torch.no_grad():
+        L = _sgpr._kuu_chol(params, _sgpr._jitter(None))
+        Kuf = _kuf(params.kernel, params.inducing_Z.value, X)
+    block, width = _chol.SOLVE_BLOCK, _chol.SOLVE_MIN_WIDTH
+
+    def builtin(Lx, B):
+        return torch.linalg.solve_triangular(Lx, B, upper=False)
+
+    def blocked(Lx, B):
+        return _chol._BlockedLowerSolve.apply(Lx, B, block)
+
+    rows = {}
+    for k in SOLVE_WIDTHS:
+        B = Kuf[:, :k].contiguous()
+        G = torch.randn(k, M, dtype=B.dtype, device=B.device).T
+        Lg, Bg = L.clone().requires_grad_(), B.clone().requires_grad_()
+
+        def both(solve):
+            return torch.autograd.grad(solve(Lg, Bg), (Lg, Bg), G)
+
+        reps = max(3, min(30, N // k))
+        with torch.no_grad():
+            err = rel_err(blocked(L, B), builtin(L, B))[0]
+        grads = both(blocked), both(builtin)
+        gerr = max(rel_err(g, w)[0] for g, w in zip(*grads))
+        before = _chol.solve_lower.blocked_calls
+        with torch.no_grad():
+            _chol.solve_lower(L, B)
+        engaged = _chol.solve_lower.blocked_calls == before + 1
+        row = {"ms": cuda_ms(lambda: blocked(L, B), reps),
+               "library_ms": cuda_ms(lambda: builtin(L, B), reps),
+               "with_backward_ms": cuda_ms(lambda: both(blocked), reps),
+               "library_with_backward_ms": cuda_ms(lambda: both(builtin),
+                                                   reps),
+               "bound_ms": M * M * k / PEAK_FP64_TENSOR * 1e3,
+               "rel_err": err, "grad_rel_err": gerr, "entry_blocked": engaged}
+        rows[f"{M}x{k}"] = row
+        share = 100 * row["bound_ms"] / row["ms"]
+        print(f"[solve] L^-1 B, B [{M}, {k}], blocks of {block} rows: "
+              f"{row['ms']:.4f} ms (library {row['library_ms']:.4f}), with "
+              f"the backward {row['with_backward_ms']:.4f} ms (library "
+              f"{row['library_with_backward_ms']:.4f}), bound "
+              f"{row['bound_ms']:.4f} ms, {share:.1f} % of bound; against "
+              f"the library {err:.3e}, gradients "
+              f"{gerr:.3e}; the entry point "
+              f"{'blocked' if engaged else 'builtin'} ({card})", flush=True)
+        require(err <= SOLVE_TOL and gerr <= SOLVE_TOL,
+                f"blocked solve against the builtin at [{M}, {k}]")
+        require(engaged == (k >= width),
+                f"solve_lower at [{M}, {k}]: blocked from {width} columns")
+        del B, G, Lg, Bg, grads
+        torch.cuda.empty_cache()
+    del L, Kuf
+    torch.cuda.empty_cache()
+
+    # the counters on the main paths: an Adam step (A forward and its
+    # backward) and prediction requests (A, and from ``width`` columns on
+    # the two solves of the projections)
+    from cglb_tpu_torch.experiments.datasets import get_dataset
+    from cglb_tpu_torch.utils.training import adam_minimize
+
+    def counted(fn):
+        before = (_chol.solve_lower.blocked_calls,
+                  _chol.solve_lower.blocked_backward_calls)
+        fn()
+        torch.cuda.synchronize()
+        return (_chol.solve_lower.blocked_calls - before[0],
+                _chol.solve_lower.blocked_backward_calls - before[1])
+
+    state = model.carry_in()
+
+    def step():
+        nonlocal state
+        state = adam_minimize(model.loss_fn(), params, state, 1, 0.01).state
+
+    per_step = [counted(step) for _ in range(3)]
+    Xs, Ys = get_dataset("Wilson_kin40k", split=0).test
+    per_request = {s: counted(lambda s=s: model.predict_log_density(
+        (Xs[:s], Ys[:s]))) for s in (64, 4096, 8192, N_TEST)}
+    print(f"[solve] blocked solves (forward, backward): per Adam step "
+          f"{per_step}; per prediction request by rows {per_request} "
+          f"({card})", flush=True)
+    require(all(c == (1, 1) for c in per_step),
+            "an Adam step: not one blocked solve forward and one backward")
+    require(all(c == (1 + 2 * (s >= width), 0)
+                for s, c in per_request.items()),
+            "a prediction request: not A's blocked solve plus the two "
+            "projection solves from the engaging width on")
+    results["_solve"] = {"block": block, "min_width": width, "rows": rows,
+                         "per_step": per_step,
+                         "per_request": {str(s): c for s, c in
+                                         per_request.items()}}
+    del model, params, X
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------------------
 # --compare: kernel and step times of source trees, in turns
 # --------------------------------------------------------------------------
@@ -3018,6 +3141,7 @@ def main() -> int:
     phase_sweep(card)
     phase_mesh(kernels, card)
     phase_predict(kernels, card, anchor["test/nlpd"])
+    phase_solve(kernels, card)
     for name in _counters():  # over the six main paths
         kernels[name]["launches"] = (
             kernels[name]["launches_adam_cli"]
@@ -3055,7 +3179,7 @@ def main() -> int:
         "scipy4_run": kernels["_scipy4"], "exactgp_run": kernels["_exactgp"],
         "houseelectric_run": kernels["_houseelectric"],
         "wide_run": kernels["_wide"], "mesh_run": kernels["_mesh"],
-        "predict_run": kernels["_predict"]}
+        "predict_run": kernels["_predict"], "solve": kernels["_solve"]}
     print(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s "
           f"({card})", flush=True)
     print(json.dumps(line))
