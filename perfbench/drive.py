@@ -15,10 +15,17 @@ follows, so the window's own first steps are among them.
 ``adam_minimize`` has no stopping rule of its own, so the harness's loss
 function raises :class:`_Closed` instead of starting that step: every step
 of the window is a whole step.
+
+On several ranks (``ranks``, a :class:`perfbench.ranks.Ranks`) the model
+holds the program's mesh (``make_mesh``), the window opens once every rank
+is ready, and every decision that reads the clock (closing the window,
+ending the traced slice, a closed loop's next request) is rank 0's, shared
+before the step or request starts; only rank 0 traces its card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import time
@@ -32,7 +39,8 @@ from . import traffic as _traffic
 from .spec import ROOT
 from .tracing import DeviceTrace, KernelRecorder, launch_counts
 
-__all__ = ["start_values", "build_model", "run_adam", "run_predict", "p95"]
+__all__ = ["start_values", "make_mesh", "build_model", "run_adam",
+           "run_predict", "p95"]
 
 
 class _Closed(Exception):
@@ -74,9 +82,19 @@ def start_values(cfg: Dict, root=ROOT) -> Dict[str, np.ndarray]:
     return out
 
 
-def build_model(cfg: Dict, train, device: torch.device, values: Dict):
+def make_mesh(chips: int, device: torch.device):
+    """This rank's mesh of ``chips`` ranks (the CLI's ``--mesh chips``),
+    joining the ranks' group by the program's launch contract."""
+    from cglb_tpu_torch.backend import make_mesh as program_mesh
+
+    return program_mesh(chips, device)
+
+
+def build_model(cfg: Dict, train, device: torch.device, values: Dict,
+                mesh=None):
     """The program's Model for configuration ``cfg`` on the training split,
-    at the parameters ``values``."""
+    at the parameters ``values``; with ``mesh``, column-sharded over its
+    ranks (every rank holds all of X)."""
     from cglb_tpu_torch import config as pconf
     from cglb_tpu_torch.backend import Model
     from cglb_tpu_torch.ops.kernels import make_kernel
@@ -98,7 +116,8 @@ def build_model(cfg: Dict, train, device: torch.device, values: Dict):
                              max_cg_iters=cfg["max_cg_iters"],
                              restart_cg_iters=cfg["restart_cg_iters"],
                              precond_dtype=cfg["precond_dtype"])
-        return Model("cglb", params, (X, Y), run_cfg, matvec=cfg["matvec"])
+        return Model("cglb", params, (X, Y), run_cfg, matvec=cfg["matvec"],
+                     mesh=mesh)
     raise ValueError(f"unknown model {cfg['model']!r}")
 
 
@@ -108,7 +127,7 @@ def _raws(model) -> Dict[str, torch.Tensor]:
 
 
 def run_adam(model, cfg: Dict, mix: Dict, seconds: float, trace: bool,
-             device: torch.device) -> SimpleNamespace:
+             device: torch.device, ranks=None) -> SimpleNamespace:
     """One run of an ``adam`` mix.  Returns the window (steps, seconds,
     non-finite losses), set-up's end on the host clock, what the reference
     checks (the first ``compared_steps`` losses, set-up's and the
@@ -133,9 +152,12 @@ def run_adam(model, cfg: Dict, mix: Dict, seconds: float, trace: bool,
     st = SimpleNamespace(i=0, phase="setup", t0=0.0, i0=0, tt0=0.0)
     bad = torch.zeros((), dtype=torch.int64, device=device)
     carry = model.carry_in()
+    traces = trace and (ranks is None or ranks.rank == 0)
 
     def close_window():
         _sync(device)
+        if ranks is not None:
+            ranks.barrier()
         out.seconds = time.perf_counter() - st.t0
         out.steps = st.i - st.i0
         out.failed = int(bad)
@@ -145,18 +167,31 @@ def run_adam(model, cfg: Dict, mix: Dict, seconds: float, trace: bool,
         out.counters = {k: v - out.counters[k]
                         for k, v in launch_counts().items()}
         out.slice_recorder.__enter__()
-        out.device_trace = DeviceTrace(device.type == "cuda").__enter__()
+        if traces:
+            out.device_trace = DeviceTrace(device.type == "cuda").__enter__()
         st.phase, st.tt0, st.i0 = "trace", time.perf_counter(), st.i
 
-    def feed(params, state, *args):
+    def action() -> int:
+        """1: close the window before this step; 2: end the slice."""
         now = time.perf_counter()
         if (st.phase == "window" and now - st.t0 >= seconds
                 and st.i >= compared):
-            close_window()
+            return 1
         if st.phase == "trace" and (
                 now - st.tt0 >= mix["trace_seconds"]
                 and st.i - st.i0 >= mix["trace_min_units"]):
-            out.device_trace.__exit__(None, None, None)
+            return 2
+        return 0
+
+    def feed(params, state, *args):
+        act = action()
+        if ranks is not None and st.phase != "setup":
+            act = ranks.agree(act)
+        if act == 1:
+            close_window()
+        elif act == 2:
+            if traces:
+                out.device_trace.__exit__(None, None, None)
             out.slice_recorder.__exit__(None, None, None)
             out.trace_units = st.i - st.i0
             raise _Closed
@@ -177,6 +212,8 @@ def run_adam(model, cfg: Dict, mix: Dict, seconds: float, trace: bool,
             out.theta_c = {k: v.detach().clone() for k, v in raws.items()}
         if st.i == warm - 1:
             _sync(device)
+            if ranks is not None:
+                ranks.opened()
             if trace:
                 out.counters = launch_counts()
                 out.recorder.__enter__()
@@ -195,7 +232,7 @@ def run_adam(model, cfg: Dict, mix: Dict, seconds: float, trace: bool,
 
 
 def run_predict(model, test, cfg: Dict, mix: Dict, seconds: float,
-                trace: bool, seed: int, device: torch.device
+                trace: bool, seed: int, device: torch.device, ranks=None
                 ) -> SimpleNamespace:
     """One run of a ``predict`` mix: requests from one client, back to
     back or (``rate_per_s``) each at its due time, each
@@ -245,6 +282,8 @@ def run_predict(model, test, cfg: Dict, mix: Dict, seconds: float,
                                     replace=False), keep=False)
     sched = _traffic.requests(mix, seed, len(Xs))
     _sync(device)
+    if ranks is not None:
+        ranks.opened()
     if trace:
         out.counters = launch_counts()
         out.recorder.__enter__()
@@ -256,9 +295,12 @@ def run_predict(model, test, cfg: Dict, mix: Dict, seconds: float,
     def due(k):
         return None if rate is None else t0 + k / rate
 
+    def more(going: bool) -> bool:
+        return going if ranks is None else bool(ranks.agree(going))
+
     t0 = out.setup_end = time.perf_counter()
     while (len(out.rows) < count if rate is not None else
-           time.perf_counter() - t0 < seconds or len(out.rows) % cycle):
+           more(time.perf_counter() - t0 < seconds or len(out.rows) % cycle)):
         if out.recorder is not None:
             out.recorder.unit = len(out.rows)
         request(next(sched), True, due(len(out.rows)))
@@ -268,10 +310,13 @@ def run_predict(model, test, cfg: Dict, mix: Dict, seconds: float,
         out.recorder.__exit__(None, None, None)
         out.counters = {k: v - out.counters[k]
                         for k, v in launch_counts().items()}
-        with out.slice_recorder, DeviceTrace(device.type == "cuda") as dt:
+        tracer = (DeviceTrace(device.type == "cuda")
+                  if ranks is None or ranks.rank == 0
+                  else contextlib.nullcontext())
+        with out.slice_recorder, tracer as dt:
             tt0 = time.perf_counter()
-            while (time.perf_counter() - tt0 < mix["trace_seconds"]
-                   or out.trace_units < mix["trace_min_units"]):
+            while more(time.perf_counter() - tt0 < mix["trace_seconds"]
+                       or out.trace_units < mix["trace_min_units"]):
                 idx = next(sched)
                 out.slice_recorder.unit = len(out.rows)
                 request(idx, True, due(len(out.rows)))

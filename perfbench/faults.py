@@ -11,10 +11,10 @@ the program's path while it is open.
   (the window's eighth, after set-up's cycle of 32) is shifted by 1e-3
   where the model produces it;
 - ``answer_altered``: one log density of the fortieth request is shifted
-  by 1e-3 nats where the model produces it.
-
-The cells here run on one card, so the fault of an exchange between cards
-left out has no place.
+  by 1e-3 nats where the model produces it;
+- ``exchange_left_out``: on several ranks, the all-reduce of the program's
+  mesh sums every rank's part but the last one's (alike on every rank, so
+  that the ranks stay in step); planted in each rank.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import torch
 from . import drive
 
 __all__ = ["FAULTS", "state_unchanged", "half_batch", "mean_altered",
-           "answer_altered"]
+           "answer_altered", "exchange_left_out"]
 
 
 @contextlib.contextmanager
@@ -47,9 +47,10 @@ def state_unchanged():
 def half_batch():
     build = drive.build_model
 
-    def half(cfg, train, device, values):
+    def half(cfg, train, device, values, mesh=None):
         n = len(train[0]) // 2
-        model = build(cfg, (train[0][:n], train[1][:n]), device, values)
+        model = build(cfg, (train[0][:n], train[1][:n]), device, values,
+                      mesh=mesh)
         make = model.loss_fn
 
         def loss_fn():
@@ -102,5 +103,19 @@ def answer_altered():
     return _fortieth("predict_log_density", alter)
 
 
+def exchange_left_out():
+    from cglb_tpu_torch.parallel.mesh import DataMesh
+
+    def all_but_last(self, x):
+        parts = self._gathered(x.reshape(-1))
+        out = parts[0]
+        for part in parts[1:-1]:
+            out = out + part
+        return out.reshape(x.shape).to(x.device)
+
+    return _patched(DataMesh, "all_reduce", all_but_last)
+
+
 FAULTS = {"state_unchanged": state_unchanged, "half_batch": half_batch,
-          "mean_altered": mean_altered, "answer_altered": answer_altered}
+          "mean_altered": mean_altered, "answer_altered": answer_altered,
+          "exchange_left_out": exchange_left_out}

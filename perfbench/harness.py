@@ -2,15 +2,23 @@
 
 ``run_cell`` is everything but the look for a card, so that a test can
 drive a whole run on the CPU at a small configuration.  ``main`` is the
-command: it checks the card first and the modules loaded last.
+command: it checks the card first and the modules loaded last.  A cell on
+several cards runs as ranks (``ranks.py``): the command started without a
+rank is their launcher, and ``run_rank`` is one rank's run, of which rank 0
+prints the result line.
+
+The configuration's ``reference`` names the module of ``reference/`` that
+checks it (``cglb``, the dense reference, where the key is absent).
 """
 
 from __future__ import annotations
 
 import argparse
 import gc
+import importlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -20,13 +28,14 @@ from typing import Dict, List, Optional
 import torch
 
 from . import compare, datagen, drive
-from .reference import cglb as ref_cglb
+from .ranks import RANK_VAR, Ranks, launch
 from .reference.common import adam_steps
-from .spec import ROOT, Cell, find_cell, metric_reader
+from .spec import HERE, ROOT, Cell, find_cell, metric_reader
 from .tracing import top
 
-__all__ = ["run_cell", "reference_training", "reference_prediction",
-           "main", "BLOCKED", "blocked_modules"]
+__all__ = ["run_cell", "run_rank", "report", "reference_module",
+           "reference_training", "reference_prediction", "main", "BLOCKED",
+           "blocked_modules"]
 
 # top-level module names that no run may load: JAX and the JAX package
 # (whose name the program's, cglb_tpu_torch, begins with)
@@ -59,22 +68,31 @@ def _free(device: torch.device) -> None:
         torch.cuda.empty_cache()
 
 
+def reference_module(cfg: Dict):
+    """The module of ``reference/`` that the configuration names."""
+    name = cfg.get("reference", "cglb")
+    if not name.isidentifier():
+        raise ValueError(f"reference {name!r} is not a module name")
+    return importlib.import_module(f"{__package__}.reference.{name}")
+
+
 def reference_training(cfg: Dict, mix: Dict, train,
                        device: torch.device, values: Dict,
                        dtype=torch.float64):
     """The reference's ``compared_steps`` Adam steps from the
     configuration's start: (losses, first gradient, raw leaves before,
     after)."""
+    ref = reference_module(cfg)
     X = torch.as_tensor(train[0], dtype=dtype, device=device)
     Y = torch.as_tensor(train[1], dtype=dtype, device=device)
-    raw0 = ref_cglb.raw_leaves(values, cfg["positive_lower"], dtype, device)
+    raw0 = ref.raw_leaves(values, cfg["positive_lower"], dtype, device)
     steps = int(mix["compared_steps"])
     # CG's warm start: zero at the start, then the previous step's v
     carry = {"v": torch.zeros(Y.shape[1], X.shape[0], dtype=dtype,
                               device=device)}
 
     def loss_grad(raw, k):
-        loss, grad, carry["v"] = ref_cglb.loss_and_grad(
+        loss, grad, carry["v"] = ref.loss_and_grad(
             raw, X, Y, carry["v"], cfg)
         return loss, grad
     losses, grad0, raw_c = adam_steps(raw0, loss_grad, steps,
@@ -88,8 +106,8 @@ def reference_prediction(cfg: Dict, mix: Dict, train, test,
     """(mean, variance, log density) at every test row, numpy."""
     t = [torch.as_tensor(a, dtype=dtype, device=device)
          for a in (*train, *test)]
-    return tuple(x.double().cpu().numpy() for x in ref_cglb.predict(
-        values, *t, cfg, float(mix["cg_tolerance"])))
+    return tuple(x.double().cpu().numpy() for x in reference_module(
+        cfg).predict(values, *t, cfg, float(mix["cg_tolerance"])))
 
 
 def _per_layer(cell: Cell, ctx) -> Dict[str, Dict]:
@@ -103,11 +121,14 @@ def _per_layer(cell: Cell, ctx) -> Dict[str, Dict]:
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
              device: torch.device, started: float,
-             program: Optional[Dict] = None) -> Dict:
+             program: Optional[Dict] = None,
+             ranks: Optional[Ranks] = None) -> Optional[Dict]:
     """One run: the result line's object.  ``started``: the host clock at
     process start (set-up is counted from it).  ``program``: settings of
     the program that differ from the configuration's (the control's
-    precision); the reference keeps the configuration's."""
+    precision); the reference keeps the configuration's.  ``ranks``: this
+    process's rank of a cell on several cards; every rank runs the cell,
+    and rank 0 returns the result of them all (the others None)."""
     cfg, mix = cell.config, cell.traffic
     prog_cfg = dict(cfg, **(program or {}))
     seed = _seed(seed)
@@ -116,20 +137,25 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     train, test = _data(cfg, seed)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
+    mesh = None
+    if ranks is not None:
+        mesh = drive.make_mesh(cell.chips, device)
+        ranks.connect()
     values = drive.start_values(cfg, cell.base.parent)
-    model = drive.build_model(prog_cfg, train, device, values)
+    model = drive.build_model(prog_cfg, train, device, values, mesh=mesh)
     t_model = time.perf_counter()
     if mix["kind"] == "adam":
-        run = drive.run_adam(model, prog_cfg, mix, seconds, trace, device)
+        run = drive.run_adam(model, prog_cfg, mix, seconds, trace, device,
+                             ranks)
         units, rows = run.steps, None
     elif mix["kind"] == "predict":
         run = drive.run_predict(model, test, prog_cfg, mix, seconds, trace,
-                                seed, device)
+                                seed, device, ranks)
         units, rows = run.units, sum(len(r) for r in run.rows[:run.units])
     else:
         raise ValueError(f"unknown traffic kind {mix['kind']!r}")
     peak = torch.cuda.max_memory_allocated() if cuda else 0
-    del model
+    del model, mesh
     _free(device)
 
     # the reference, once the window has closed and the program is freed
@@ -147,6 +173,26 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     _free(device)
     print(f"reference and comparison {time.perf_counter() - t_ref:.3f} s",
           file=sys.stderr)
+    ok, checks = compare.judge(numbers, cell.limits)
+    ok = bool(ok and run.failed == 0 and units > 0)
+    failed = run.failed
+    calls = [c for _, c in run.recorder.calls] if trace else None
+    rank_calls, rank_counters = [calls], [run.counters]
+    if ranks is not None:
+        every = ranks.gather({"ok": ok, "failed": failed, "units": units,
+                              "peak": int(peak), "calls": calls,
+                              "counters": run.counters,
+                              "blocked": blocked_modules()})
+        if ranks.rank != 0:
+            return None
+        steps = [e["units"] for e in every]
+        print(f"window steps or requests by rank: {steps}", file=sys.stderr)
+        ok = all(e["ok"] for e in every) and len(set(steps)) == 1
+        failed = sum(e["failed"] for e in every)
+        peak = max(e["peak"] for e in every)
+        rank_calls = [e["calls"] for e in every]
+        rank_counters = [e["counters"] for e in every]
+        blocked = sorted({m for e in every for m in e["blocked"]})
 
     setup_s = run.setup_end - started
     print(f"set-up {setup_s:.3f} s: start {t_in - started:.3f}, data and "
@@ -160,18 +206,18 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
                               if rows else None)}
     result = {"correct": None,
               "attempted": units,
-              "failed": run.failed}
+              "failed": failed}
     if trace:
         dt = run.device_trace
         ctx = SimpleNamespace(
             kind=mix["kind"], config=cfg, units=units,
             seconds=run.seconds, rows=(run.rows[:run.units] if rows else None),
-            calls=[c for _, c in run.recorder.calls],
-            unit_calls=run.recorder.calls,
+            calls=calls, unit_calls=run.recorder.calls,
             counters=run.counters,
             slice_units=run.trace_units, slice_s=dt.window_s,
             slice_calls=[c for _, c in run.slice_recorder.calls],
-            trace=dt)
+            trace=dt, chips=len(rank_calls), rank_calls=rank_calls,
+            rank_counters=rank_counters)
         result["metrics"] = _per_layer(cell, ctx)
     else:
         result["metrics"] = {
@@ -180,7 +226,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     result["device"] = {
         "platform": "gpu" if cuda else device.type,
         "kind": torch.cuda.get_device_name() if cuda else device.type,
-        "count": 1,
+        "count": len(rank_calls),
         "memory_peak_bytes": int(peak)}
     if trace:
         dt = run.device_trace
@@ -188,12 +234,25 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         result["breakdown"] = {
             "device_ops": top(dt.device_seconds_by_name()),
             "idle_gaps": top(dt.idle_by_host_op())}
-    ok, checks = compare.judge(numbers, cell.limits)
-    result["correct"] = bool(ok and run.failed == 0 and units > 0)
+    result["correct"] = ok
     result["checks"] = {k: {kk: (vv if math.isfinite(vv) else 1e300)
                             for kk, vv in v.items()}
                         for k, v in checks.items()}
+    if ranks is not None:
+        result["blocked"] = blocked
     return result
+
+
+def run_rank(cell: Cell, seed: int, seconds: float, trace: bool,
+             device: torch.device, started: float, ranks: Ranks) -> int:
+    """One rank of a cell on several cards; rank 0 prints the result line
+    (to the launcher), the others print nothing on standard output."""
+    result = run_cell(cell, seed, seconds, trace, device, started,
+                      ranks=ranks)
+    ranks.close()
+    if ranks.rank != 0:
+        return 3 if blocked_modules() else 0
+    return report(result, result.pop("blocked"))
 
 
 def _card() -> str:
@@ -207,8 +266,29 @@ def _card() -> str:
         return "nvidia-smi not readable"
 
 
+def report(result: Dict, blocked: List[str] = ()) -> int:
+    """Print the result line, unless a blocked module is loaded here or was
+    in another rank (``blocked``): the exit code."""
+    found = sorted(set(blocked_modules()) | set(blocked))
+    if found:
+        print(f"blocked modules loaded: {', '.join(found)}: no result",
+              file=sys.stderr)
+        return 3
+    if "card" not in result:  # a rank's line, passed on, has it
+        result["card"] = _card()
+    checks = result.pop("checks")
+    result["checks"] = checks  # the compared numbers come last
+    print(f"card: {result['card']}", file=sys.stderr)
+    for k, v in checks.items():
+        print(f"check {k} {v['value']!r} limit {v['limit']!r}",
+              file=sys.stderr)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
 def main(argv: Optional[List[str]] = None, started: float = None) -> int:
     started = time.perf_counter() if started is None else started
+    argv = sys.argv[1:] if argv is None else list(argv)
     ap = argparse.ArgumentParser(
         description="Run one cell of BENCHMARK.json once and print its "
                     "result as the last line.")
@@ -227,19 +307,15 @@ def main(argv: Optional[List[str]] = None, started: float = None) -> int:
               f"{torch.cuda.device_count()} visible: no result",
               file=sys.stderr)
         return 2
-    result = run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                      torch.device("cuda", 0), started)
-    found = blocked_modules()
-    if found:
-        print(f"blocked modules loaded: {', '.join(found)}: no result",
-              file=sys.stderr)
-        return 3
-    result["card"] = _card()
-    checks = result.pop("checks")
-    result["checks"] = checks  # the compared numbers come last
-    print(f"card: {result['card']}", file=sys.stderr)
-    for k, v in checks.items():
-        print(f"check {k} {v['value']!r} limit {v['limit']!r}",
-              file=sys.stderr)
-    print(json.dumps(result), flush=True)
-    return 0
+    if cell.chips == 1:
+        return report(run_cell(cell, args.seed, args.seconds,
+                                bool(args.trace), torch.device("cuda", 0),
+                                started))
+    if RANK_VAR not in os.environ:
+        return launch([sys.executable, str(HERE / "run.py"), *argv],
+                      cell.chips, args.seconds, started, report)
+    ranks = Ranks.from_env()
+    device = torch.device("cuda", ranks.rank)
+    torch.cuda.set_device(device)
+    return run_rank(cell, args.seed, args.seconds, bool(args.trace), device,
+                    started, ranks)

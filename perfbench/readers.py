@@ -5,7 +5,11 @@ mix's), ``config``, the untraced window (``units``, ``seconds``, ``rows``,
 ``calls`` and ``unit_calls`` from the launch recorder, ``counters``: the
 program's launch counters over it) and the traced slice after it
 (``slice_units``, ``slice_s``, ``slice_calls``, ``trace``: the device
-trace).  A reader that finds nothing to read returns None.
+trace).  On several ranks these are rank 0's, and ``chips`` (the number of
+ranks), ``rank_calls`` and ``rank_counters`` (every rank's window launch
+records and counters, in rank order) count the whole step; on one rank
+``chips`` is 1 and the lists hold its own.  A reader that finds nothing to
+read returns None.
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ A cell names a configuration and a traffic mix; each lives in a file of its
 own, found by name:
 
 - ``configs/<config>.json``: the configuration as it is run (sizes, model,
-  precision, starting parameters);
+  precision, starting parameters, and the module of ``reference/`` that
+  checks it);
 - ``traffic/<traffic>.json``: the mix's parameters, read by the one general
   generator (``traffic.py``);
 - ``limits/<cell>.json``: the cell's compared numbers and their limits;

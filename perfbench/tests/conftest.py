@@ -19,6 +19,11 @@ TINY = {"cglb-tiny.adam": ("cglb-tiny", "adam", "cglb-kin40k.adam"),
         "cglb-tiny.predict": ("cglb-tiny", "predict", "cglb-kin40k.predict"),
         "cglb-tiny.predict-rate": ("cglb-tiny", "predict-rate",
                                    "cglb-kin40k.predict-rate")}
+# cells on two ranks (gloo on the CPU), checked by the streamed reference
+TINY_RANKS = {"cglb-tiny-streamed.adam": ("cglb-tiny-streamed", "adam",
+                                          "cglb-kin40k.adam", 2),
+              "cglb-tiny-streamed.predict": ("cglb-tiny-streamed", "predict",
+                                             "cglb-kin40k.predict", 2)}
 
 
 def make_tiny_root(dest: Path) -> Path:
@@ -38,19 +43,35 @@ def make_tiny_root(dest: Path) -> Path:
     start["params"][".inducing_Z"] = {
         "__ndarray__": Z.tolist(), "dtype": "float64", "shape": [20, 8]}
     (base / "configs" / f"{name}.json").write_text(json.dumps(cfg))
+    (base / "configs" / f"{name}-streamed.json").write_text(
+        json.dumps(dict(cfg, name=f"{name}-streamed",
+                        reference="cglb_streamed")))
     (base / "data" / f"{name}.model.json").write_text(json.dumps(start))
-    bench["configs"].append({"name": name, "source": "tiny",
-                             "file": f"perfbench/configs/{name}.json",
-                             "reduced": [], "why": "tests"})
-    for cell, (config, mix, kin) in TINY.items():
+    for config in (name, f"{name}-streamed"):
+        bench["configs"].append({"name": config, "source": "tiny",
+                                 "file": f"perfbench/configs/{config}.json",
+                                 "reduced": [], "why": "tests"})
+    cells = {k: v + (1,) for k, v in TINY.items()}
+    for cell, (config, mix, kin, chips) in {**cells, **TINY_RANKS}.items():
         bench["workloads"].append({"name": cell, "config": config,
-                                   "traffic": mix, "chips": 1,
+                                   "traffic": mix, "chips": chips,
                                    "why": "tests"})
         (base / "limits" / f"{cell}.json").write_text(
             (base / "limits" / f"{kin}.json").read_text())
         for m in bench["end_to_end"] + bench["per_layer"]:
             if kin in m.get("workloads", ()):
                 m["workloads"].append(cell)
+    # a reader of the ranks' records (the traced context's chips,
+    # rank_calls and rank_counters)
+    (base / "metrics" / "ranks_seen.train.py").write_text(
+        "def read(ctx):\n"
+        "    if len(ctx.rank_calls) == len(ctx.rank_counters) == ctx.chips:\n"
+        "        return float(ctx.chips)\n")
+    bench["per_layer"].append({
+        "name": "ranks_seen.train", "unit": "ranks", "better": "higher",
+        "source": "program_counter", "layer": "device",
+        "moves": "train_step_ms",
+        "workloads": ["cglb-tiny.adam", "cglb-tiny-streamed.adam"]})
     for mix in ("predict", "predict-rate"):
         pred = json.loads((base / "traffic" / f"{mix}.json").read_text())
         pred.update(rows_max=198, trace_seconds=0.2)

@@ -132,3 +132,138 @@ def test_adam_matches_torch_adam():
         opt.step()
     assert torch.allclose(after["w"], w.detach(), atol=1e-15)
     assert torch.equal(g0["w"], 2 * w0)
+
+
+# the streamed reference (reference/cglb_streamed.py) against the dense one,
+# at blocks and chunks smaller than N, with CG held to six steps so that
+# both take the same steps
+STREAMED_CFG = dict(CFG, max_error=1e-30, max_cg_iters=6)
+_RANK = """
+import sys, torch, torch.distributed as dist
+sys.path.insert(0, {root!r})
+from perfbench.reference import cglb_streamed as s
+rank = int(sys.argv[1])
+dist.init_process_group("gloo", init_method="tcp://localhost:{port}",
+                        world_size=2, rank=rank)
+c = torch.load({case!r})
+loss, grad, v = s.loss_and_grad(c["raw"], c["X"], c["Y"], c["v0"], c["cfg"],
+                                block=32, chunk=40)
+pred = s.predict(c["values"], c["X"], c["Y"], c["Xs"], c["Ys"], c["cfg"],
+                 1e-30, block=32, chunk=40)
+torch.save({{"loss": loss, "grad": grad, "v": v, "pred": pred}},
+           {out!r} + str(rank))
+dist.destroy_process_group()
+"""
+
+
+def _streamed_case():
+    X, Y = _data(n=150)
+    Xs, Ys = _data(n=70, seed=1)
+    values = {k: torch.as_tensor(a) for k, a in _values(X, m=20).items()}
+    raw = ref_cglb.raw_leaves(values, 1e-6, torch.float64, "cpu")
+    return dict(X=X, Y=Y, Xs=Xs, Ys=Ys, values=values, raw=raw,
+                v0=torch.zeros(1, len(X)), cfg=STREAMED_CFG)
+
+
+def _streamed_on_two_ranks(case, tmp_path):
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    torch.save(case, tmp_path / "case.pt")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    code = _RANK.format(root=str(Path(__file__).resolve().parents[2]),
+                        port=port, case=str(tmp_path / "case.pt"),
+                        out=str(tmp_path / "out"))
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)])
+             for r in range(2)]
+    try:
+        assert [p.wait(timeout=120) for p in procs] == [0, 0]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    outs = [torch.load(tmp_path / f"out{r}") for r in range(2)]
+    # the same bits on every rank
+    assert outs[0]["loss"] == outs[1]["loss"]
+    for a, b in zip(outs[0]["pred"], outs[1]["pred"]):
+        assert torch.equal(a, b)
+    for k in outs[0]["grad"]:
+        assert torch.equal(outs[0]["grad"][k], outs[1]["grad"][k])
+    o = outs[0]
+    return o["loss"], o["grad"], o["v"], o["pred"]
+
+
+@pytest.mark.parametrize("ranks", [1, 2])
+def test_streamed_equals_dense(ranks, tmp_path):
+    from perfbench.reference import cglb_streamed
+
+    c = _streamed_case()
+    loss, grad, v = ref_cglb.loss_and_grad(c["raw"], c["X"], c["Y"], c["v0"],
+                                           c["cfg"], block=16)
+    pred = ref_cglb.predict(c["values"], c["X"], c["Y"], c["Xs"], c["Ys"],
+                            c["cfg"], 1e-30)
+    if ranks == 1:
+        s_loss, s_grad, s_v = cglb_streamed.loss_and_grad(
+            c["raw"], c["X"], c["Y"], c["v0"], c["cfg"], block=32, chunk=40)
+        s_pred = cglb_streamed.predict(c["values"], c["X"], c["Y"], c["Xs"],
+                                       c["Ys"], c["cfg"], 1e-30, block=32,
+                                       chunk=40)
+    else:
+        s_loss, s_grad, s_v, s_pred = _streamed_on_two_ranks(c, tmp_path)
+    assert abs(s_loss - loss) <= 1e-12 * abs(loss)
+    median = float(np.median([float(g.norm()) for g in grad.values()]))
+    for k in grad:  # compare.py's measure: the leaf or the median leaf
+        gap = float((s_grad[k] - grad[k]).norm())
+        assert gap <= 1e-12 * max(float(grad[k].norm()), median), k
+    assert float((s_v - v).norm()) <= 1e-12 * float(v.norm())
+    for a, b in zip(s_pred, pred):  # mean, variance, log density
+        assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,precond,share", [
+    ("cglb-kin40k.adam", "float64", 100), ("cglb-kin40k.adam", None, 4),
+    ("cglb-kin40k.predict", None, 100)])
+def test_streamed_equals_dense_on_the_card(cuda_device, name, precond, share):
+    """At kin40k's configuration, the streamed reference held to the dense
+    one by the cell's own comparison: every number within ``1 / share`` of
+    its limit (predict-rate has predict's reference and limits).  Training
+    with the configured fp32 preconditioner is held to a quarter: r's fp32
+    roundings flip under any other order of K's sums, and two dense runs
+    that differ only so read up to a ninth of ``change_gap``'s limit apart
+    (PERF.md); with an fp64 preconditioner, to a hundredth."""
+    import sys
+    import time
+
+    from perfbench import compare, drive, harness, spec
+
+    cell = spec.find_cell(name)
+    cfg, mix = cell.config, cell.traffic
+    if precond:
+        cfg = dict(cfg, precond_dtype=precond)
+    streamed = dict(cfg, reference="cglb_streamed")
+    values = drive.start_values(cfg)
+    for seed in (3700000005, 3700000006):
+        train, test = harness._data(cfg, seed)
+        refs, took = [], []
+        for c in (streamed, cfg):
+            t0 = time.perf_counter()
+            refs.append(harness.reference_training(
+                c, mix, train, cuda_device, values) if mix["kind"] == "adam"
+                else harness.reference_prediction(
+                    c, mix, train, test, cuda_device, values))
+            took.append(time.perf_counter() - t0)
+        if mix["kind"] == "adam":
+            numbers = compare.training_numbers(*refs[0], *refs[1])
+        else:
+            numbers = compare.prediction_numbers(
+                [np.arange(len(test[0]))], *([x] for x in refs[0]), *refs[1])
+        print(f"{name} {precond or cfg['precond_dtype']} {seed}: streamed "
+              f"{took[0]:.2f} s, dense {took[1]:.2f} s, numbers {numbers}",
+              file=sys.stderr)
+        for k, limit in cell.limits.items():
+            assert numbers[k] <= limit / share, (k, numbers[k], limit)

@@ -48,5 +48,6 @@ def test_the_last_line(tiny_root, monkeypatch, capsys):
     assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
     assert {m["name"] for m in cell.per_layer} >= set(line["metrics"])
     assert "cg_matvecs.train" in line["metrics"]
+    assert line["metrics"]["ranks_seen.train"]["value"] == 1.0
     last = err.strip().splitlines()[-3:]
     assert [s.split()[1] for s in last] == list(line["checks"])
