@@ -27,6 +27,12 @@ rank holds the same bits, in an order fixed from run to run.  So the CG stop
 test, read on every rank from replicated values, takes the same branch
 everywhere, and the parameters every rank steps stay bitwise equal.
 
+Every collective is one all-gather through :func:`exchange`, inside a
+``cglb.mesh.exchange`` span (``utils/profiling.annotate``), counted by
+``exchange.exchanges`` and ``exchange.exchange_bytes`` (the bytes this rank
+sends: its part, to each of the other ranks).  :meth:`DataMesh.check_same`
+reads the gathered values on the host inside a ``cglb.mesh.read`` span.
+
 Bootstrap (:func:`maybe_initialize_distributed`), the JAX package's
 environment contract: ``CGLB_DIST=auto`` (or a launch by ``torchrun``) reads
 the ``env://`` variables; ``CGLB_COORDINATOR=host:port`` with
@@ -51,9 +57,12 @@ from typing import Any, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["DataMesh", "data_mesh", "maybe_initialize_distributed",
-           "in_launched_rank", "plan_ranks", "resolve_backend", "run_ranks",
-           "RankFailed", "free_port", "shutdown", "TIMEOUT_S"]
+from ..utils.profiling import annotate
+
+__all__ = ["DataMesh", "data_mesh", "exchange",
+           "maybe_initialize_distributed", "in_launched_rank", "plan_ranks",
+           "resolve_backend", "run_ranks", "RankFailed", "free_port",
+           "shutdown", "TIMEOUT_S"]
 
 # a rank that never arrives, or a collective that never completes, fails the
 # run after this many seconds instead of hanging it
@@ -165,6 +174,26 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
+def exchange(x: torch.Tensor, world: int, group=None,
+             host_staged: bool = False) -> list:
+    """Every rank's ``x`` (same shape and dtype on each), in rank order: the
+    one collective of the mesh, an all-gather over ``group``; through the
+    host where ``host_staged``."""
+    with annotate("cglb.mesh.exchange"):
+        x = x.contiguous()
+        if host_staged:
+            x = x.cpu()
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x, group=group)
+    exchange.exchanges += 1
+    exchange.exchange_bytes += (world - 1) * x.numel() * x.element_size()
+    return parts
+
+
+exchange.exchanges = 0
+exchange.exchange_bytes = 0  # this rank's part, once to each other rank
+
+
 class _Enter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
@@ -253,12 +282,7 @@ class DataMesh:
     # -- collectives on plain tensors (no autograd) --
 
     def _gathered(self, x: torch.Tensor):
-        x = x.contiguous()
-        if self.host_staged:
-            x = x.cpu()
-        parts = [torch.empty_like(x) for _ in range(self.world)]
-        dist.all_gather(parts, x, group=self.group)
-        return parts
+        return exchange(x, self.world, self.group, self.host_staged)
 
     def all_gather(self, x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
         """The ranks' blocks of ``x`` along ``dim`` joined into n."""
@@ -282,7 +306,9 @@ class DataMesh:
         """Raise on every rank when ranks hold different ``value``s."""
         t = torch.tensor([float(value)], dtype=torch.float64,
                          device=self.device)
-        seen = [float(p) for p in self._gathered(t)]
+        parts = self._gathered(t)
+        with annotate("cglb.mesh.read"):
+            seen = torch.cat(parts).tolist()
         if any(v != seen[0] for v in seen):
             raise RuntimeError(f"{what} differ across ranks: {seen}")
 

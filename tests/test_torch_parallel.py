@@ -234,9 +234,36 @@ def _rank_main(outdir: str) -> None:
         for name, prm in params.named_params():
             out[f"step_{tag}__raw{name}"] = prm.raw.detach().numpy()
 
+    _exchange_cases(mesh, out, case)
     _backend_cases(mesh, out, outdir)
     np.savez(outdir / f"rank{mesh.rank}.npz", **out)
     tpm.shutdown()
+
+
+def _exchange_cases(mesh, out: dict, case) -> None:
+    """The exchange counters over three collectives of known sizes, and the
+    spans of a sharded loss and its backward under a profiler beside the
+    counters' change over the same calls."""
+    ex = tpm.exchange
+    n0, b0 = ex.exchanges, ex.exchange_bytes
+    mesh.all_reduce(torch.ones(3, dtype=torch.float64))
+    mesh.all_gather(torch.ones(2, 5, dtype=torch.float32), 10, 1)
+    mesh.check_same(1.0, "a test value")
+    out["exchange__counted"] = np.array([ex.exchanges - n0,
+                                         ex.exchange_bytes - b0])
+    X, Y, v, params = case("even")
+    cfg = tc.CGLBConfig(max_error=1e30, precond_dtype="float64")
+    n0 = ex.exchanges
+    params.zero_grad(set_to_none=True)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        loss, _ = tsh.sharded_cglb_loss(params, X, Y, v, cfg, mesh,
+                                        matvec="streaming")
+        loss.backward()
+    names = [e.name for e in prof.events()]
+    out["exchange__traced"] = np.array([
+        ex.exchanges - n0, names.count("cglb.mesh.exchange"),
+        names.count("cglb.mesh.read")])
 
 
 def _backend_cases(mesh, out: dict, outdir: Path) -> None:
@@ -553,6 +580,26 @@ def test_backend_tolerance_levels_match_jax(ranks):
     want = [float(fn(m8.params, m8.v0, *m8.data, jnp.asarray(me))[0])
             for me in (1.0, 1e-2)]
     np.testing.assert_allclose(r0["backend_mesh__tol"], want, rtol=1e-7)
+
+
+def test_exchange_counters_count_each_collective_and_its_bytes(ranks):
+    """An all-reduce of 3 fp64, an all-gather of a [2, 5] fp32 block and a
+    check_same: three exchanges, each rank sending its part to the other
+    rank (24, 40 and 8 bytes)."""
+    _, (r0, r1) = ranks
+    for r in (r0, r1):
+        assert r["exchange__counted"].tolist() == [3, 24 + 40 + 8]
+
+
+def test_exchange_spans_appear_under_a_profiler(ranks):
+    """A sharded loss and its backward under torch.profiler: one
+    cglb.mesh.exchange span for each exchange counted (the matvec's
+    gathers, the all-reduces, the backward's), and one cglb.mesh.read for
+    the CG solve's check of the ranks' step counts."""
+    _, (r0, r1) = ranks
+    for r in (r0, r1):
+        counted, spans, reads = r["exchange__traced"].tolist()
+        assert counted > 4 and spans == counted and reads == 1
 
 
 def test_ranks_step_bitwise_equal_parameters(ranks):
