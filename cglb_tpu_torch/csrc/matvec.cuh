@@ -36,7 +36,7 @@ struct Args {
 };
 
 // kernels 1 and 2 of family FAM on the symmetric (SYM) or general path,
-// for coordinate width dp in {8, 32} and batch b in {1, 2, 4, 8}
+// for coordinate width dp in {8, 12, 32} and batch b in {1, 2, 4, 8}
 template <int FAM, bool SYM>
 int run_family(const Args& a, int dp, int b, Op op);
 

@@ -78,8 +78,9 @@
 //   K = 8 d2 only through the norm expansion, whose 10-bit mantissa loses
 //   the small distances that matter most.
 //
-// Coordinates are zero-padded to DP in {8, 32} columns (wider: the chunked
-// kernels of matvec_wide.cuh) and p/g to B in
+// Coordinates are zero-padded to DP in {8, 12, 32} columns (ops/matvec.py
+// coord_plan: D 9-12 at 12, D 13-32 at 32; wider: the chunked kernels of
+// matvec_wide.cuh) and p/g to B in
 // {1, 2, 4, 8} rows by the wrapper; staged row vectors are zero-padded to a
 // leading dimension that is a multiple of 4, so tiles load as 16-byte
 // copies.  Rows past ni are zero-filled in shared memory and carry p = 0,
@@ -97,13 +98,17 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kStages = 3;  // cp.async ring depth
 
 // kernel 1 (LS = false) and kernel 2 (LS = true) tiles per coordinate width;
-// at DP = 32 kernel 2 keeps one column a lane (two spill at 255 registers)
+// at DP = 32 kernel 2 keeps one column a lane (two spill at 255 registers).
+// DP = 12 (D 9-12) takes DP 8's tiles but for kernel 2's two columns a lane
+// (four need 170 registers, one block an SM, and were no faster); a third
+// resident block of kernel 1 (MinBlocks, 80 registers) gained 2 % with spills
 template <int DP, bool LS>
 struct Tile {
-  static constexpr int kCols = DP == 8 ? 4 : (LS ? 1 : 2);
+  static constexpr int kCols =
+      DP == 8 ? 4 : DP == 12 ? (LS ? 2 : 4) : (LS ? 1 : 2);
   static constexpr int kRows = LS ? 1 : 2;
   static constexpr int kBlockCols = 32 * kCols;
-  static constexpr int kStageRows = DP == 8 ? 128 : 64;
+  static constexpr int kStageRows = DP == 32 ? 64 : 128;
   static_assert(kStageRows % (kWarps * kRows) == 0, "rows per stage");
 };
 
@@ -596,6 +601,7 @@ template <int FAM, bool SYM>
 int run_family(const Args& a, int dp, int b, Op op) {
   switch (dp) {
     case 8: return run_b<FAM, 8, SYM>(a, b, op);
+    case 12: return run_b<FAM, 12, SYM>(a, b, op);
     case 32: return run_b<FAM, 32, SYM>(a, b, op);
     default: return kBadArgument;
   }

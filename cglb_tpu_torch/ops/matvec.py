@@ -39,6 +39,7 @@ is counted once, by kernel 2.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -70,9 +71,12 @@ _MAX_SEGMENTS = 32
 # float per column block and row): the column blocks go out in slabs that
 # fit it, reduced one after another.  Every block fits one slab up to the
 # kin40k shapes (26800 rows at B = 8: 180 MB), so those launches are
-# unchanged; at houseelectric's 1,373,017 rows a slab takes 97 blocks at
-# B = 1 where all 21,454 would take 117.8 GB.
+# unchanged; at houseelectric's 1,373,017 rows (D 11, DP 12) a slab takes
+# at most 97 blocks at B = 1 where all 10,727 would take 58.9 GB.
 ROW_PARTIAL_BYTES = 1 << 29
+# coordinate widths of the narrow kernels 1-2 (csrc/matvec_kernels.cuh
+# run_family): d pads to the first that holds it
+NARROW_WIDTHS = (8, 12, 32)
 # above 32 input dimensions the coordinates are padded to a multiple of
 # this (the wide kernels' chunks, csrc/matvec_wide.cuh)
 WIDE_CHUNK = 8
@@ -88,15 +92,15 @@ class CoordPlan(NamedTuple):
 
 
 def coord_plan(d: int) -> CoordPlan:
-    """The instantiated widths 8 and 32 up to d = 32; above it the next
-    multiple of WIDE_CHUNK (D 40 at 40, D 100 at 104), with no upper limit
-    but kernel 2's shared memory (12 bytes a coordinate: about 13000)."""
+    """The first of the instantiated widths 8, 12 and 32 that holds d (D 11
+    at 12, D 16 at 32); above 32 the next multiple of WIDE_CHUNK (D 40 at
+    40, D 100 at 104), with no upper limit but kernel 2's shared memory (12
+    bytes a coordinate: about 13000)."""
     if d < 1:
         raise ValueError(f"input dimension {d} < 1")
-    if d <= 8:
-        return CoordPlan(8, False)
-    if d <= 32:
-        return CoordPlan(32, False)
+    for width in NARROW_WIDTHS:
+        if d <= width:
+            return CoordPlan(width, False)
     return CoordPlan(-(-d // WIDE_CHUNK) * WIDE_CHUNK, True)
 
 
@@ -393,6 +397,7 @@ def _launch_matvec_group(rows: Prepared, cols: Prepared, p: torch.Tensor,
         _build.check(rc, "cglb_matvec")
         launch_matvec.launches += 1
         launch_matvec.accurate_launches += int(accurate)
+        launch_matvec.launches_by_width[dp] += 1
         return part
 
     if not symmetric:
@@ -424,6 +429,8 @@ def _launch_matvec_group(rows: Prepared, cols: Prepared, p: torch.Tensor,
 
 launch_matvec.launches = 0
 launch_matvec.accurate_launches = 0  # those of the accurate tier among them
+# launches by coordinate width (coord_plan: 12 for D 9-12, 32 for D 13-32)
+launch_matvec.launches_by_width = collections.Counter()
 
 
 def launch_ls_grad(rows: Prepared, cols: Prepared, p: torch.Tensor,
@@ -470,10 +477,12 @@ def _launch_ls_grad_group(rows: Prepared, cols: Prepared, p: torch.Tensor,
         torch.cuda.current_stream(p.device).cuda_stream)
     _build.check(rc, "cglb_ls_grad")
     launch_ls_grad.launches += 1
+    launch_ls_grad.launches_by_width[dp] += 1
     return torch.sum(partial, dim=0)[:rows.xg.shape[1]]
 
 
 launch_ls_grad.launches = 0
+launch_ls_grad.launches_by_width = collections.Counter()  # as kernel 1's
 
 
 # --------------------------------------------------------------------------

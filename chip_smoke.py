@@ -68,7 +68,10 @@ Phases, each of which fails the run (non-zero exit) on error:
     version in both tiers, repeats bitwise equal; at houseelectric's
     N_train 1,373,017, D 11, B 1 against the general path (also a kernel:
     the plain version is O(N^2) too slow there), with the times of kernels
-    1-2 at that size beside their bounds (counted at D 11), and kernel 3 on
+    1-2 at that size beside their bounds (counted at D 11), kernels 1-2
+    on a ``cglb-houseelectric.mesh4`` rank's general path (442,200 x
+    110,550, D 11 at ``coord_plan``'s width, B 1; both tiers of kernel 1
+    and kernel 2) against their plain versions in fp64, and kernel 3 on
     one chunk of its common terms (1024 x 65536, D 11, padded to 16)
     against its plain version and beside its bound;
 13. the chunked common terms at the main path's shapes: the CGLB loss and
@@ -170,8 +173,11 @@ archive``) is timed in a process of its own, which builds that tree's
 kernels: the kernel rows of phase 2 (Matern32, without the plain versions),
 phase 15's rows of the wide kernels at D 40 and 100 (Matern32, with their
 bounds), kernel 3 at D 9, 17 and 27 (2048 x 26800) and on phase 12's
-houseelectric chunk (1024 x 65536, D 11), and the warm Adam steps of phase
-3.  The median of each row over
+houseelectric chunk (1024 x 65536, D 11), kernels 1-2 at D 9, 11 and 16
+on ``cglb-houseelectric.mesh4``'s shapes (a rank's general path, 442,200
+x 110,550, and the symmetric path on 442,200 rows; each tree pads D by its
+own ``coord_plan``), and the warm Adam steps of phase 3.  The median of
+each row over
 the runs of each tree is printed last, beside the card's name and power
 limit.
 
@@ -279,6 +285,12 @@ WIDE_ARGS = ["-t", "fp64", "-s", "0", "train", "-n", "3",
 # protein D 9, bike 17, keggundirected 27; kuf_plan pads them to 16, 24,
 # 32), at the main path's M x N; houseelectric's D 11 is phase 12's chunk
 KUF_DS = (9, 17, 27)
+# --compare: kernels 1-2 at D 9 (protein), 11 (houseelectric) and 16, at
+# the shapes of cglb-houseelectric.mesh4: a rank's general path (its
+# 442,200 rows against its 110,550 columns) and one card's symmetric path
+# on the 442,200 rows
+MID_DS = (9, 11, 16)
+RANK_ROWS, RANK_COLS = 442_200, 110_550
 # phase 16: the proof grid (the TPU sweep runs/sweep-tpu-proof's points)
 GRIDS = ROOT / "cglb_tpu_torch" / "experiments" / "grids"
 PROOF_GRID = GRIDS / "proof.toml"
@@ -1797,7 +1809,7 @@ def phase_slabs(results: dict, card: str) -> None:
     del X, rows, plain, one_slab, acc, cg
     torch.cuda.empty_cache()
 
-    # houseelectric's training size, coordinates padded to DP 32
+    # houseelectric's training size, coordinates padded to coord_plan's width
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
     Xh = torch.as_tensor(rng.normal(size=(HOUSE_N, HOUSE_D)), device=dev)
@@ -1835,7 +1847,8 @@ def phase_slabs(results: dict, card: str) -> None:
         "accurate": matvec_bound(HOUSE_N, HOUSE_N, HOUSE_D, 1, True, True),
         "cg": matvec_bound(HOUSE_N, HOUSE_N, HOUSE_D, 1, False, True),
         "ls_grad": ls_grad_bound(HOUSE_N, HOUSE_N, HOUSE_D, 1, True)}
-    print(f"[slabs] {family} symmetric {HOUSE_N}^2, D {HOUSE_D} (DP 32), "
+    print(f"[slabs] {family} symmetric {HOUSE_N}^2, D {HOUSE_D} (DP "
+          f"{rows.plan.width}), "
           f"B 1, in {slabs} slabs: accurate rel err {err:.3e} against the "
           f"general path (bound {TOL['matvec_accurate']:g}), CG tier "
           f"{cg_err:.3e} (bound {TOL['matvec_cg']:g}); repeat bitwise equal "
@@ -1857,8 +1870,59 @@ def phase_slabs(results: dict, card: str) -> None:
         "general_ms_houseelectric": general_ms})
     results["ls_grad"].update({"ms_houseelectric": ls_ms,
                                "bound_ms_houseelectric": bounds["ls_grad"][0]})
-    del Xh, rows, rows2, sym, again, sym_cg, cg_again, general
+    del rows, rows2, sym, again, sym_cg, cg_again, general
     torch.cuda.empty_cache()
+    _rank_split_against_plain(Xh, lsh, family, card)
+    del Xh
+    torch.cuda.empty_cache()
+
+
+def _rank_split_against_plain(Xh, lsh, family: str, card: str) -> None:
+    """Kernels 1-2 on a cglb-houseelectric.mesh4 rank's general path (its
+    RANK_ROWS rows against RANK_COLS of them as columns), at the width
+    coord_plan gives D 11, against the plain versions in fp64: both tiers
+    of kernel 1 and kernel 2, B 1.  The plain sums go in row blocks of
+    RANK_COLS, so no temporary passes a few GiB.  With it, the symmetric
+    path's check against the general path above is a check against plain."""
+    from cglb_tpu_torch.ops import matvec as _mv
+
+    rng = np.random.default_rng(1)
+    dev = Xh.device
+    rows = _mv.Prepared(Xh[:RANK_ROWS], lsh, family)
+    cols = _mv.Prepared(Xh[RANK_COLS:2 * RANK_COLS], lsh, family)
+    p = torch.as_tensor(rng.normal(size=(1, RANK_ROWS)), device=dev)
+    g = torch.as_tensor(rng.normal(size=(1, RANK_COLS)), device=dev)
+    by_width = (dict(_mv.launch_matvec.launches_by_width),
+                dict(_mv.launch_ls_grad.launches_by_width))
+    acc = _mv.launch_matvec(rows, cols, p, True)
+    cg = _mv.launch_matvec(rows, cols, p, False)
+    ls = _mv.launch_ls_grad(rows, cols, p, g)
+    width = rows.plan.width
+    at_width = (_mv.launch_matvec.launches_by_width[width]
+                - by_width[0].get(width, 0),
+                _mv.launch_ls_grad.launches_by_width[width]
+                - by_width[1].get(width, 0))
+    plain = plain_ls = 0
+    for r0 in range(0, RANK_ROWS, RANK_COLS):
+        xr, pr = rows.xg[r0:r0 + RANK_COLS], p[:, r0:r0 + RANK_COLS]
+        plain = plain + _mv.matvec_unit_plain(xr, cols.xg, pr, family)
+        plain_ls = plain_ls + _mv.ls_grad_unit_plain(xr, cols.xg, pr, g,
+                                                     family)
+    err, _ = rel_err(acc, plain)
+    cg_err, _ = rel_err(cg, plain)
+    ls_err, _ = rel_err(ls, plain_ls)
+    print(f"[slabs] {family} rank split {RANK_ROWS} x {RANK_COLS}, D "
+          f"{HOUSE_D} (DP {width}), B 1, general path against plain fp64: "
+          f"kernel 1 accurate rel err {err:.3e} (bound "
+          f"{TOL['matvec_accurate']:g}), CG tier {cg_err:.3e} (bound "
+          f"{TOL['matvec_cg']:g}); kernel 2 {ls_err:.3e} (bound "
+          f"{TOL['backward']:g}); launches at width {width}: {at_width} "
+          f"({card})", flush=True)
+    require(err <= TOL["matvec_accurate"], "rank split: kernel 1 accurate")
+    require(cg_err <= TOL["matvec_cg"], "rank split: kernel 1 CG tier")
+    require(ls_err <= TOL["backward"], "rank split: kernel 2")
+    require(at_width == (2, 1), "rank split: a launch at another width")
+    del rows, cols, acc, cg, ls, plain, plain_ls
 
 
 def _kin40k_model():
@@ -3047,10 +3111,46 @@ def times_of_tree(tree: Path) -> int:
         out[f"{name} bound ms"] = kuf_bound(m, n, d)[0]
         del zg, xg
         torch.cuda.empty_cache()
+    for d in MID_DS:
+        for name, (fn, bnd) in mid_rows(d).items():
+            out[f"D {d} {name} ms"] = cuda_ms(fn, 3)
+            out[f"D {d} {name} bound ms"] = bnd[0]
+        torch.cuda.empty_cache()
     # unprofiled: an older tree may lack the profiling module
     out.update(warm_steps(profile=False))
     print(_RESULT + json.dumps(out), flush=True)
     return 0
+
+
+def mid_rows(d: int) -> dict:
+    """{row: (launch, bound)} of kernels 1-2 at input dimension d on the
+    MID_DS shapes, B 1, accurate tier (the mesh's operator runs no other):
+    kernel 1's general and symmetric paths, kernel 2's general path.
+    Bounds at the data's d.  Only entry points that every tree since PR 6
+    has; each tree pads d by its own coord_plan."""
+    from cglb_tpu_torch.ops import matvec as _mv
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(d)
+    X = torch.as_tensor(rng.normal(size=(RANK_ROWS, d)), device=dev)
+    ls = torch.as_tensor(math.sqrt(d) * rng.uniform(0.5, 2.0, size=d),
+                         device=dev)
+    p = torch.as_tensor(rng.normal(size=(1, RANK_ROWS)), device=dev)
+    g = torch.as_tensor(rng.normal(size=(1, RANK_COLS)), device=dev)
+    rows = _mv.Prepared(X, ls, "mat32")
+    cols = _mv.Prepared(X[RANK_COLS:2 * RANK_COLS], ls, "mat32")
+    shape = f"{RANK_ROWS}x{RANK_COLS}"
+    return {
+        f"kernel 1 general {shape}": (
+            lambda: _mv.launch_matvec(rows, cols, p, True),
+            matvec_bound(RANK_ROWS, RANK_COLS, d, 1, True)),
+        f"kernel 1 symmetric {RANK_ROWS}": (
+            lambda: _mv.launch_matvec(rows, rows, p, True),
+            matvec_bound(RANK_ROWS, RANK_ROWS, d, 1, True, True)),
+        f"kernel 2 general {shape}": (
+            lambda: _mv.launch_ls_grad(rows, cols, p, g),
+            ls_grad_bound(RANK_ROWS, RANK_COLS, d, 1)),
+    }
 
 
 def compare(trees, card: str) -> int:

@@ -1,5 +1,6 @@
 """PyTorch port on the card: each CUDA kernel against its plain version at
-small shapes, including the padded widths (D > 8, B not a power of two),
+small shapes, including the padded widths (D > 8, B not a power of two;
+houseelectric's D 11 at width 12 on a rank's split),
 the wide kernels above 32 input dimensions (both paths, slabs, groups and
 data far from the origin),
 rectangular matvecs and the symmetric path (one prepared point set),
@@ -116,6 +117,45 @@ def test_symmetric_matvec_in_slabs_matches_plain(dev, monkeypatch, family, n,
     cg = tmv.launch_matvec(rows, rows, p, False)
     assert _rel(cg, want) < 2e-3
     assert torch.equal(cg, tmv.launch_matvec(rows, rows, p, False))
+
+
+# houseelectric's D 11 at coordinate width 12 (coord_plan): the general
+# path at a rank's split (all rows against one quarter of them as columns,
+# as under --mesh 4) and the symmetric path, B 1 and 8
+@pytest.mark.parametrize("family", ["mat32", "rbf"])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("n,quarter", [(4000, True), (2100, False)])
+def test_width_12_kernels_match_plain_at_d11(dev, family, b, n, quarter):
+    """Both tiers of kernel 1 and kernel 2 within their bounds of the plain
+    versions, repeat launches bitwise equal, and every launch counted at
+    width 12."""
+    rng = np.random.default_rng(6)
+    d = 11
+    ls = torch.tensor(rng.uniform(0.5, 2.0, size=d), device=dev)
+    X = torch.tensor(rng.normal(size=(n, d)), device=dev)
+    rows = tmv.Prepared(X, ls, family)
+    assert rows.plan == tmv.CoordPlan(12, False)
+    cols = (tmv.Prepared(X[n // 4:n // 2], ls, family) if quarter
+            else rows)
+    p = torch.tensor(rng.normal(size=(b, n)), device=dev)
+    g = torch.tensor(rng.normal(size=(b, cols.n)), device=dev)
+    counts = (tmv.launch_matvec.launches, tmv.launch_ls_grad.launches,
+              tmv.launch_matvec.launches_by_width[12],
+              tmv.launch_ls_grad.launches_by_width[12])
+    want = tmv.matvec_unit_plain(rows.xg, cols.xg, p, family)
+    for accurate, tol in ((True, 3e-6), (False, 2e-3)):
+        got = tmv.launch_matvec(rows, cols, p, accurate)
+        assert _rel(got, want) < tol
+        assert torch.equal(got, tmv.launch_matvec(rows, cols, p, accurate))
+    got = tmv.launch_ls_grad(rows, cols, p, g)
+    want = tmv.ls_grad_unit_plain(rows.xg, cols.xg, p, g, family)
+    assert _rel(got, want) < 1e-5
+    assert torch.equal(got, tmv.launch_ls_grad(rows, cols, p, g))
+    matvecs = tmv.launch_matvec.launches - counts[0]
+    assert matvecs >= 4
+    assert tmv.launch_matvec.launches_by_width[12] - counts[2] == matvecs
+    assert tmv.launch_ls_grad.launches - counts[1] == 2
+    assert tmv.launch_ls_grad.launches_by_width[12] - counts[3] == 2
 
 
 @pytest.mark.parametrize("family", ["mat32", "rbf"])

@@ -150,24 +150,30 @@ def test_kernel_shape_limits():
 
 
 @pytest.mark.parametrize("d,width,wide", [
-    (1, 8, False), (8, 8, False), (9, 32, False), (32, 32, False),
+    (1, 8, False), (8, 8, False), (9, 12, False), (11, 12, False),
+    (12, 12, False), (13, 32, False), (16, 32, False), (17, 32, False),
+    (32, 32, False),
     (33, 40, True), (36, 40, True), (40, 40, True), (41, 48, True),
     (64, 64, True), (100, 104, True), (1000, 1000, True)])
 def test_coordinate_plan_at_any_dimension(rng, d, width, wide):
-    """Every D >= 1 has a launch plan: the instantiated widths 8 and 32 up
-    to 32 (as before), above it the wide kernels' multiple of WIDE_CHUNK
-    (8: D 40 runs at 40, D 100 at 104); the packed coordinates are the
-    scaled ones, zero-padded."""
+    """Every D >= 1 has a launch plan: the first of the instantiated widths
+    8, 12 and 32 that holds D (D 9-12 at 12, D 13-32 at 32), above 32 the
+    wide kernels' multiple of WIDE_CHUNK (8: D 40 runs at 40, D 100 at
+    104); the packed coordinates are x sqrt(gamma) / lengthscale in fp32,
+    then zero columns up to the width (t over them is the same sum as over
+    the D), packed once."""
     assert tmv.coord_plan(d) == (width, wide)
     assert width % tmv.WIDE_CHUNK == 0 or not wide
     X = torch.tensor(rng.normal(size=(5, d)))
-    prep = tmv.Prepared(X, torch.full((d,), 2.0, dtype=torch.float64),
-                        "mat32")
+    ls = torch.tensor(rng.uniform(0.5, 2.0, size=d))
+    prep = tmv.Prepared(X, ls, "mat32")
     packed = prep.packed()
     assert prep.plan.wide == wide and packed.shape == (5, width)
     assert packed.dtype == torch.float32 and packed.is_contiguous()
-    assert torch.equal(packed[:, :d], prep.xg.float())
+    scaled = (X * (np.sqrt(tk.GAMMA["mat32"]) / ls)).float()
+    assert torch.equal(packed[:, :d], scaled)
     assert not packed[:, d:].any()
+    assert prep.packed() is packed
 
 
 @pytest.mark.parametrize("n,block", [(1, 64), (64, 64), (130, 64),
@@ -413,9 +419,12 @@ def test_padded_operands_are_zero_filled_and_aligned():
 
 # kernel 1's symmetric path in slabs of column blocks (pure Python)
 
-# the DP 32 instantiation of kernel 1 (D = 11 pads to 32): 2 columns a lane,
+# the DP 32 instantiation of kernel 1 (D 13-32 pad to 32): 2 columns a lane,
 # 64 rows a staged tile (Tile in csrc/matvec_kernels.cuh)
 GEO_DP32 = tmv.Geometry(64, 64, 132 * 2)
+# the DP 12 instantiation (D 9-12; houseelectric's D 11): 4 columns a lane,
+# 128 rows a staged tile
+GEO_DP12 = tmv.Geometry(128, 128, 132 * 2)
 HOUSEELECTRIC_TRAIN = 1_373_017  # int(2,049,280 * 0.67)
 
 
@@ -434,17 +443,19 @@ def _check_slab_plan(n, geo, bp, budget):
     return slabs
 
 
+@pytest.mark.parametrize("geo,blocks,gb", [(GEO_DP32, 21454, 117.8),
+                                           (GEO_DP12, 10727, 58.9)])
 @pytest.mark.parametrize("bp", [1, 8])
-def test_slab_plan_bounds_row_partials_at_houseelectric(bp):
+def test_slab_plan_bounds_row_partials_at_houseelectric(bp, geo, blocks, gb):
     """At houseelectric's training size the symmetric path's row sums, one
     float per (column block, row), would take 117.8 GB at B = 1 in a single
-    launch; the slab plan holds every launch's to ROW_PARTIAL_BYTES (at most
-    1 GiB), whatever the batch width."""
+    launch at DP 32 (58.9 GB at DP 12, whose blocks are twice as wide); the
+    slab plan holds every launch's to ROW_PARTIAL_BYTES (at most 1 GiB),
+    whatever the batch width."""
     n = HOUSEELECTRIC_TRAIN
-    blocks = -(-n // GEO_DP32.block_cols)
-    assert blocks == 21454
-    assert blocks * bp * n * 4 >= 117.8e9 * bp
-    slabs = _check_slab_plan(n, GEO_DP32, bp, tmv.ROW_PARTIAL_BYTES)
+    assert -(-n // geo.block_cols) == blocks
+    assert blocks * bp * n * 4 >= gb * 1e9 * bp
+    slabs = _check_slab_plan(n, geo, bp, tmv.ROW_PARTIAL_BYTES)
     biggest = max((s.cb1 - s.cb0) * bp * s.row_end * 4 for s in slabs)
     assert biggest <= tmv.ROW_PARTIAL_BYTES <= 1 << 30
     assert len(slabs) > 1
