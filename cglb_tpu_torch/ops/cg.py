@@ -8,9 +8,10 @@ Counterpart of ``cglb_tpu/ops/cg.py:59-182`` with the same semantics:
 - the residual is recomputed from scratch every ``restart_iters`` steps;
 - the stop rule is 0.5 * sum(rz) <= max_error (or the iteration cap).
 
-The stop test is read back to the host once per iteration, in a span
-``cglb.cg.read`` (the solve is ``cglb.cg``): a solve of k steps reads k + 2
-times.
+The stop test is read back to the host once at the start and once per
+iteration, in a span ``cglb.cg.read`` (the solve is ``cglb.cg``): a solve of
+k steps reads k + 1 times.  The carry keeps the last value read, so a resumed
+solve does not read it again.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ class CGCarry(NamedTuple):
 
     state: _CGState
     err_cap: float
+    err: float  # the stop test 0.5 * sum(state.rz), as last read
 
 
 def _read_err(rz: torch.Tensor) -> float:
@@ -72,9 +74,9 @@ def cg_init(matvec: MatVec, b: torch.Tensor, v0: torch.Tensor,
     r0 = torch.where(col, b, r0)
     z0 = torch.where(col, zb, z0)
     rz0 = torch.where(use_cold, rzb, rz0)
-    err_cap = 1e6 * (_read_err(rz0) + 1.0)
+    err = _read_err(rz0)
     return CGCarry(state=_CGState(i=0, v=v0, r=r0, p=z0, rz=rz0),
-                   err_cap=err_cap)
+                   err_cap=1e6 * (err + 1.0), err=err)
 
 
 @torch.no_grad()
@@ -83,8 +85,7 @@ def cg_advance(matvec: MatVec, b: torch.Tensor, precond, carry: CGCarry,
                ) -> Tuple[CGCarry, CGStats]:
     """Iterate from ``carry`` until err <= max_error, i >= max_iters (an
     absolute cap, counted from cg_init), or divergence."""
-    s = carry.state
-    err = _read_err(s.rz)
+    s, err = carry.state, carry.err
     while (err > max_error and s.i < max_iters
            and math.isfinite(err) and err < carry.err_cap):
         Ap = matvec(s.p)
@@ -96,7 +97,7 @@ def cg_advance(matvec: MatVec, b: torch.Tensor, precond, carry: CGCarry,
         p = z if restart else z + (new_rz / s.rz)[:, None] * s.p
         s = _CGState(i=s.i + 1, v=v, r=r, p=p, rz=new_rz)
         err = _read_err(s.rz)
-    return (CGCarry(state=s, err_cap=carry.err_cap),
+    return (CGCarry(state=s, err_cap=carry.err_cap, err=err),
             CGStats(steps=s.i, residual_error=err))
 
 

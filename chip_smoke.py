@@ -210,6 +210,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+# the kernels' roofline: the benchmark's own counts, read and never copied
+from perfbench.counts import (PEAK_BYTES, bound, kuf_bound, ls_grad_bound,
+                              matvec_bound)
+
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 
@@ -221,12 +225,8 @@ TOL = {  # relative to max |plain|
     "kuf": 1e-12,
     "backward": 1e-5,
 }
-# H100 SXM data sheet, dense, at the 700 W limit: fp32 and fp64 outside the
-# tensor cores, and HBM3
-PEAK_FLOPS = {"fp32": 67e12, "fp64": 34e12}
 # fp64 on the tensor cores (DGEMM): the rate phase 19 holds the solve to
 PEAK_FP64_TENSOR = 67e12
-PEAK_BYTES = 3.35e12
 ANCHOR = ROOT / "runs" / "kin40k-2000-scipy4-r4"
 _HEAD = ["-t", "fp64", "-s", "0", "train"]
 _DATA = ["-d", "Wilson_kin40k"]
@@ -379,47 +379,6 @@ def rel_err(got: torch.Tensor, want: torch.Tensor):
     """(max |got - want| / max |want|, max |got - want|)."""
     diff = float(torch.max(torch.abs(got.double() - want.double())))
     return diff / float(torch.max(torch.abs(want))), diff
-
-
-def bound(flops: float, dtype: str, nbytes: float):
-    """(bound_ms, bound_by): the least time the card could take, the larger
-    of the operations over the peak rate of their type and the bytes (each
-    input read once, each output written once) over the memory rate."""
-    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
-    bytes_ms = nbytes / PEAK_BYTES * 1e3
-    return ((ops_ms, "operations") if ops_ms >= bytes_ms
-            else (bytes_ms, "bytes"))
-
-
-def matvec_bound(ni: int, nj: int, d: int, b: int, accurate: bool,
-                 symmetric: bool = False):
-    """Kernel 1 per pair: d subtractions and d FMAs for t (3d flops), about
-    4 for the profile, one FMA per batch row (2b); fp32.  Symmetric (one
-    point set): n(n+1)/2 pairs, each feeding both sides (4b).  Bytes: both
-    coordinate sets and p in fp32, the output in fp64 or fp32."""
-    flops = (ni * (ni + 1) // 2 * (3 * d + 4 + 4 * b) if symmetric
-             else ni * nj * (3 * d + 4 + 2 * b))
-    return bound(flops, "fp32",
-                 (ni + nj) * d * 4 + b * ni * 4 + b * nj * (8 if accurate
-                                                             else 4))
-
-
-def ls_grad_bound(ni: int, nj: int, d: int, b: int, symmetric: bool = False):
-    """Kernel 2 per pair: d subtractions, d products df * df and d additions
-    for t (3d), about 3 for rho', 2b + 1 for p.g and m (symmetric: n(n+1)/2
-    pairs and 4b + 1), and one FMA per dimension for m * df^2 (2d); fp32.
-    Bytes: coordinates, p, g."""
-    flops = (ni * (ni + 1) // 2 * (5 * d + 3 + 4 * b + 1) if symmetric
-             else ni * nj * (5 * d + 3 + 2 * b + 1))
-    return bound(flops, "fp32",
-                 (ni + nj) * d * 4 + b * (ni + nj) * 4 + d * 8)
-
-
-def kuf_bound(m: int, n: int, d: int, with_e: bool = True):
-    """Kernel 3: writes Kuf and e in fp64 (16 bytes an entry; 8 without e)
-    and reads Z and X; about 3d + 6 fp64 operations an entry."""
-    return bound(m * n * (3 * d + 6), "fp64",
-                 (m + n) * d * 8 + m * n * (16 if with_e else 8))
 
 
 def show(name: str, ms: float, bnd, extra: str = "") -> None:

@@ -10,6 +10,7 @@ and its gradients 1e-7 with the fp64 preconditioner (as
 tests/test_torch_models.py holds the unchunked loss), 1e-6 with the fp32
 one, whose A is cast per chunk here and whole there."""
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import functools
 
 import jax

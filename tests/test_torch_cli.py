@@ -2,6 +2,7 @@
 ``metric`` and ``baseline`` commands on ``--device cpu``, beside the JAX
 package's CLI, and checkpoints exchanged between the two packages."""
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import json
 
 import numpy as np

@@ -2,6 +2,7 @@
 and the ``lbfgs`` / ``lbfgs_native`` / ``staged`` optimizers from the CLI on
 ``--device cpu``, beside the JAX package's CLI."""
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import json
 import subprocess
 from pathlib import Path

@@ -18,6 +18,7 @@ cglb_tpu, so it runs where they are absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import math
 
 import numpy as np

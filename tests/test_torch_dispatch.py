@@ -9,6 +9,7 @@ CG iterates drift apart once the Ritz values converge (ROADMAP.md section
 3), so the losses are held to 1e-8 at a depth where the iterates still agree
 to the last digits."""
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import json
 
 import jax.numpy as jnp

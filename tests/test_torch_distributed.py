@@ -4,6 +4,7 @@ two gloo ranks of itself) for the module, beside the JAX CLI's ``--mesh 2``
 run on its 8-device CPU mesh and the port's one-process run; then what
 refuses to run."""
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import json
 import os
 import subprocess

@@ -1,6 +1,7 @@
 """PyTorch port: the flatten bridge of the scipy optimizers against the JAX
 package's, element for element (fp64 on the CPU)."""
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -2,6 +2,7 @@
 inverse and square-root applies against the JAX package, fp64 on the CPU,
 inputs from a numpy seed through both."""
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -5,6 +5,7 @@ wrappers of kernels 1 and 2 against the JAX package, fp64 on the CPU.
 Both packages get one Z: the test draws it as the JAX functions would from
 their key and hands it to the port as ``probes``."""
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import dataclasses
 
 import jax

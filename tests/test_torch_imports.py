@@ -2,6 +2,7 @@
 device and unported options fail clearly, and the leaves and optimizers of
 the exact-GP arm run from the CLI."""
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import json
 import math
 import os
@@ -238,3 +239,16 @@ def test_parallel_modules_import_torch_only():
                                        "streaming.py"}
     for f in files:
         assert not pattern.search(f.read_text()), f
+
+
+def test_every_port_test_file_takes_the_thread_cap():
+    """Each tests/test_torch_*.py imports tests/torch_threads.py, and this
+    process runs torch at its cap."""
+    import torch_threads
+
+    files = sorted((ROOT / "tests").glob("test_torch_*.py"))
+    assert len(files) > 20
+    pattern = re.compile(r"^import torch_threads\b", re.M)
+    for f in files:
+        assert pattern.search(f.read_text()), f
+    assert torch.get_num_threads() == torch_threads.THREADS

@@ -1,6 +1,7 @@
 """PyTorch port: parameter transforms and dense kernels against the JAX
 package, fp64 on the CPU, inputs from a seeded numpy generator."""
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -8,6 +8,7 @@ Tolerances: 1e-10 on values against the Pallas df32 route (its own
 contract); f32 grade (2e-5 * scale) on gradients against it, whose backward
 runs in f32; 1e-12 on values and 1e-9 on gradients against dense fp64."""
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import dataclasses
 
 import jax

@@ -2,6 +2,7 @@
 ConditionalVariance (utils/native.py), and the staged exact-GP schedule,
 beside the JAX package's."""
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -6,6 +6,7 @@ Tolerances: 5e-5 * scale against interpret mode, whose bf16-split distance
 matmul is the TPU kernel's own accuracy contract (tests/test_matvec_pallas);
 1e-9 against dense fp64, since the plain version runs in fp64."""
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import dataclasses
 
 import jax

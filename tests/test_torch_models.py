@@ -2,6 +2,7 @@
 and prediction against the JAX package and the golden constants, fp64 on
 the CPU (where every kernel wrapper takes its plain version)."""
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -2,6 +2,7 @@
 exactgp: the port's counterpart of tests/test_multioutput.py, beside the JAX
 package (fp64, CPU)."""
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import numpy as np
 import pytest
 import torch

@@ -14,6 +14,7 @@ CG either capped at 6 steps (the packages' iterates agree there) or at a
 converged v where it takes no step.
 """
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import dataclasses
 import functools
 import os

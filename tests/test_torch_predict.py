@@ -4,6 +4,7 @@ ConditionalVariance oracle, ``StopWatch.stop`` and ``native_available``,
 against the JAX package on the CPU in fp64 (where every kernel wrapper
 takes its plain version), inputs made with numpy from a seed."""
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import dataclasses
 import time
 

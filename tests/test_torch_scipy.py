@@ -6,6 +6,7 @@ Trajectories are compared only where the objective has no CG: L-BFGS-B
 amplifies 1e-12 differences, and a CG stop test turns them into other
 iterates."""
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -4,6 +4,7 @@ TensorBoard sink, held to the JAX package's (``cglb_tpu/utils/tfevents.py``,
 tests/test_tfevents.py, the same bytes for the same records at a fixed wall
 time, the same parameter tags, and the same tags from a CPU CLI run."""
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import glob
 import os
 import struct

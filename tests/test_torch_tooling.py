@@ -6,6 +6,7 @@ tests/test_tooling.py with a fake runner; the tables are compared with the
 JAX package's pandas tables on the TPU runs in runs/, to the 4 printed
 decimals, with pandas and matplotlib blocked from import."""
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import math
 import os
 import shlex

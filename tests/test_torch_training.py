@@ -1,6 +1,7 @@
 """PyTorch port: inducing-point selection, datasets, the parameter bridge to
 the JAX package, and a short CLI run of both packages side by side."""
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import json
 
 import jax.numpy as jnp

@@ -9,6 +9,7 @@ the same call on the builtin.  L is the factor of a Matern32 Kuu plus a
 1e-6 jitter: well conditioned at lengthscale 0.5 (kappa(Kuu) 50 at 100
 points, 5e3 at 600), kappa(Kuu) about 1.8e6 at lengthscale 8."""
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import gc
 import weakref
 

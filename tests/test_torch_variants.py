@@ -2,6 +2,7 @@
 v and SGPRN2M against the JAX package and the golden constants (fp64 on the
 CPU)."""
 
+import torch_threads  # noqa: F401  (the test processes' torch thread cap)
 import jax
 import jax.numpy as jnp
 import numpy as np
